@@ -1,0 +1,107 @@
+// Dense boids forces: separation, alignment and cohesion on R row boids
+// from N column boids.
+//
+// Replaces the Pallas kernel
+// bevy_ggrs_tpu/ops/pairwise.py::pairwise_force_rows_pallas (kernel body
+// _force_kernel). Its plain PyTorch version is
+// bevy_ggrs_tpu_torch/ops/pairwise.py::pairwise_force_rows_plain.
+//
+// What bounds it on an H100: operations. Each pair costs about 25 FP32
+// operations and one rsqrt, against 20 bytes per boid read once, so at the
+// main path's N = 1,024 the work is ~27 MFLOP for 20 KB.
+//
+// Design: one thread per row boid with its seven accumulators (count,
+// separation x/y, velocity sum x/y, position sum x/y) in registers. The
+// block stages column tiles of positions, velocities and active flags in
+// shared memory; every thread reads the same column at once, a broadcast.
+// The columns run in one fixed order and nothing is summed with atomics,
+// so repeated launches on the same inputs give bitwise the same forces:
+// SyncTest compares a resimulated frame's checksum with the original's,
+// and any wobble would be a desync. d2 is computed with __fmul_rn and
+// __fadd_rn, never contracted into an FMA, so it has the same float value
+// as the plain version's and borderline pairs fall on the same side of
+// each radius. The combine at the end is _force_kernel's _combine.
+//
+// Known limit: one row per thread gives N / 64 blocks, 16 at N = 1,024, on
+// a card of 132 SMs. Splitting the columns over the warps of a block, with
+// a fixed-order combine, is the first thing to make it faster.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 64;    // row boids (threads) per block
+constexpr int kTile = 1024;  // column boids staged per shared-memory tile
+
+__global__ void pairwise_force_rows_kernel(
+    const float2* __restrict__ row_pos, const float2* __restrict__ row_vel,
+    const float* __restrict__ row_active, const float2* __restrict__ all_pos,
+    const float2* __restrict__ all_vel, const float* __restrict__ all_active,
+    float2* __restrict__ out, int R, int N, float nr2, float sr2, float ws,
+    float wa, float wc) {
+  __shared__ float2 s_pos[kTile];
+  __shared__ float2 s_vel[kTile];
+  __shared__ float s_act[kTile];
+
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  const bool has_row = i < R;
+  const float2 p = has_row ? row_pos[i] : make_float2(0.f, 0.f);
+  const float2 v = has_row ? row_vel[i] : make_float2(0.f, 0.f);
+  const float a = has_row ? row_active[i] : 0.f;
+
+  float n = 0.f, sx = 0.f, sy = 0.f, svx = 0.f, svy = 0.f, spx = 0.f,
+        spy = 0.f;
+  for (int base = 0; base < N; base += kTile) {
+    const int cnt = min(kTile, N - base);
+    for (int j = threadIdx.x; j < cnt; j += kRows) {
+      s_pos[j] = all_pos[base + j];
+      s_vel[j] = all_vel[base + j];
+      s_act[j] = all_active[base + j];
+    }
+    __syncthreads();
+    for (int j = 0; j < cnt; ++j) {
+      const float2 q = s_pos[j];
+      const float dx = __fsub_rn(p.x, q.x);
+      const float dy = __fsub_rn(p.y, q.y);
+      const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+      const float both = a * s_act[j];
+      const float not_self = 1.f - (d2 < 1e-10f ? 1.f : 0.f);
+      const float neigh = both * (d2 < nr2 ? 1.f : 0.f) * not_self;
+      const float close = neigh * (d2 < sr2 ? 1.f : 0.f);
+      const float inv_d = rsqrtf(fmaxf(d2, 1e-12f));
+      const float2 w = s_vel[j];
+      n += neigh;
+      sx += dx * inv_d * close;
+      sy += dy * inv_d * close;
+      svx += w.x * neigh;
+      svy += w.y * neigh;
+      spx += q.x * neigh;
+      spy += q.y * neigh;
+    }
+    __syncthreads();
+  }
+  if (!has_row) return;
+  const float n_safe = fmaxf(n, 1.f);
+  const float has = n > 0.f ? 1.f : 0.f;
+  const float fx = ws * sx + wa * (svx / n_safe - v.x) * has +
+                   wc * (spx / n_safe - p.x) * has;
+  const float fy = ws * sy + wa * (svy / n_safe - v.y) * has +
+                   wc * (spy / n_safe - p.y) * has;
+  out[i] = make_float2(fx * a, fy * a);
+}
+
+}  // namespace
+
+extern "C" int ggrs_pairwise_force_rows(
+    const void* row_pos, const void* row_vel, const void* row_active,
+    const void* all_pos, const void* all_vel, const void* all_active,
+    void* out, int R, int N, float nr2, float sr2, float ws, float wa,
+    float wc, void* stream) {
+  const int blocks = (R + kRows - 1) / kRows;
+  pairwise_force_rows_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(
+      (const float2*)row_pos, (const float2*)row_vel,
+      (const float*)row_active, (const float2*)all_pos,
+      (const float2*)all_vel, (const float*)all_active, (float2*)out, R, N,
+      nr2, sr2, ws, wa, wc);
+  return (int)cudaGetLastError();
+}

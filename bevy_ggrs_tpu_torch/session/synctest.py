@@ -1,0 +1,151 @@
+"""SyncTestSession: the determinism harness.
+
+All players are local. Every ``advance_frame`` first takes the normal
+(save, advance) step, then — once ``check_distance`` frames of history exist
+— emits a forced rollback ``check_distance`` frames deep and resimulates up
+to the present with the *same* stored inputs. When the driver re-saves each
+resimulated frame, the session compares the new checksum against the one
+recorded on the original pass; any mismatch raises
+:class:`MismatchedChecksum` — the simulate-vs-resimulate property check the
+reference runs continuously (`/root/reference/examples/box_game/
+box_game_synctest.rs:27-38`; driven by `src/ggrs_stage.rs:163-193`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from bevy_ggrs_tpu_torch.schedule import CONFIRMED, InputSpec
+from bevy_ggrs_tpu_torch.session.common import (
+    InvalidRequest,
+    MismatchedChecksum,
+    SessionState,
+    restore_spans,
+    serialize_spans,
+)
+from bevy_ggrs_tpu_torch.session.input_queue import make_queue_set
+from bevy_ggrs_tpu_torch.session.requests import AdvanceFrame, LoadGameState, SaveGameState
+
+
+class SyncTestSession:
+    def __init__(
+        self,
+        num_players: int,
+        input_spec: InputSpec = InputSpec(),
+        check_distance: int = 2,
+        max_prediction: int = 8,
+        input_delay: int = 0,
+    ):
+        if check_distance > max_prediction:
+            raise InvalidRequest(
+                f"check_distance {check_distance} exceeds max_prediction "
+                f"{max_prediction}"
+            )
+        self.num_players = int(num_players)
+        self.input_spec = input_spec
+        self.check_distance = int(check_distance)
+        self.max_prediction = int(max_prediction)
+        self.current_frame = 0
+        zero = input_spec.zeros_np(1)[0]
+        self._qset = make_queue_set(zero, [input_delay] * num_players)
+        self._queues = self._qset.queues
+        self._pending: Dict[int, np.ndarray] = {}
+        self._checksums: Dict[int, int] = {}
+
+    # -- API parity with the stage driver's session usage ------------------
+
+    def current_state(self) -> SessionState:
+        return SessionState.RUNNING  # synctest never synchronizes
+
+    def local_player_handles(self) -> List[int]:
+        return list(range(self.num_players))
+
+    def add_local_input(self, handle: int, bits) -> None:
+        """Collect this frame's input for ``handle``
+        (`ggrs_stage.rs:186`)."""
+        if not 0 <= handle < self.num_players:
+            raise InvalidRequest(f"invalid player handle {handle}")
+        self._pending[handle] = np.asarray(bits)
+
+    def advance_frame(self) -> List[object]:
+        """Emit the request list for one simulated frame: the normal step,
+        plus the forced rollback+resimulation once history allows."""
+        if set(self._pending) != set(range(self.num_players)):
+            missing = set(range(self.num_players)) - set(self._pending)
+            raise InvalidRequest(f"missing local input for handles {sorted(missing)}")
+        frame = self.current_frame
+        for h, q in enumerate(self._queues):
+            q.add_local_input(frame, self._pending[h])
+        self._pending.clear()
+
+        requests: List[object] = [
+            SaveGameState(frame),
+            self._advance_request(frame),
+        ]
+        if self.check_distance > 0 and frame >= self.check_distance:
+            load_frame = frame - self.check_distance
+            requests.append(LoadGameState(load_frame))
+            for f in range(load_frame, frame + 1):
+                requests.append(SaveGameState(f))
+                requests.append(self._advance_request(f))
+        self.current_frame = frame + 1
+        # GC: inputs/checksums older than the deepest future rollback.
+        horizon = self.current_frame - self.check_distance - 1
+        self._qset.discard_before(horizon)
+        for f in [f for f in self._checksums if f < horizon]:
+            del self._checksums[f]
+        return requests
+
+    def _advance_request(self, frame: int) -> AdvanceFrame:
+        bits, _ = self._qset.gather(frame)
+        # All players are local and fed each frame, so every input is
+        # confirmed by construction.
+        status = np.full((self.num_players,), CONFIRMED, dtype=np.int32)
+        return AdvanceFrame(bits=bits, status=status)
+
+    # -- checkpoint / resume -----------------------------------------------
+
+    def state_dict(self) -> Dict:
+        """JSON-serializable resumable state: frame counter plus the input
+        and checksum history inside the forced-rollback window. Everything
+        older is already GC'd (see :meth:`advance_frame`), so this is the
+        complete session state. Inputs are captured PER QUEUE through each
+        queue's own confirmed horizon — with ``input_delay`` > 0 that
+        horizon runs ``delay`` frames past ``current_frame`` (in-flight
+        delayed inputs), which a frame-window capture would drop."""
+        inputs = serialize_spans(
+            self._queues, max(0, self.current_frame - self.check_distance - 1)
+        )
+        return {
+            "current_frame": self.current_frame,
+            "inputs": inputs,
+            "checksums": {str(f): int(c) for f, c in self._checksums.items()},
+        }
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore :meth:`state_dict` output into a freshly constructed
+        session (same num_players / input_spec / check_distance /
+        input_delay). Inputs are re-inserted verbatim through the no-delay
+        path (delay was already applied before capture), so the next forced
+        rollback resimulates with exactly the original inputs."""
+        self.current_frame = int(sd["current_frame"])
+        zero = self.input_spec.zeros_np(1)[0]
+        restore_spans(
+            self._queues, sd["inputs"], self.current_frame,
+            zero.dtype, zero.shape,
+        )
+        self._checksums = {int(f): int(c) for f, c in sd["checksums"].items()}
+        self._pending.clear()
+
+    def report_checksum(self, frame: int, checksum: int) -> None:
+        """The ``GameStateCell::save`` analog (`ggrs_stage.rs:282-283`): the
+        driver reports each saved frame's checksum; a resimulated frame that
+        hashes differently than its original save is a desync."""
+        checksum = int(checksum)
+        prev = self._checksums.get(frame)
+        if prev is None:
+            self._checksums[frame] = checksum
+        elif prev != checksum:
+            raise MismatchedChecksum(frame, prev, checksum)

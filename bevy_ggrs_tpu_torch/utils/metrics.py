@@ -1,0 +1,230 @@
+"""Observability: counters, per-phase timers, rollback-depth histograms.
+
+The reference ships only `log`-crate warnings (survey §5: "no spans, no
+profiler hooks"); its observables are session events + network stats. This
+module adds the quantitative layer the rollback engine needs:
+
+- per-phase wall timing (network poll / input collection / device dispatch /
+  host sync) over the stage loop,
+- rollback depth + resimulated-frame histograms (the misprediction-recovery
+  cost distribution — the BASELINE.md p99 metric),
+- throughput counters (frames, rollback-frames, branches) with rate
+  reporting.
+
+All instruments are no-ops through :data:`null_metrics` unless a real
+:class:`Metrics` is installed, so the hot loop pays one attribute lookup
+when disabled. For kernel-level profiles, wrap a run with
+``torch.profiler.profile`` — these host-side metrics and the device
+profile compose.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Dict, List, Optional
+
+
+class Timer:
+    """Context-manager phase timer: ``with metrics.timer("dispatch"): ...``"""
+
+    __slots__ = ("_metrics", "_name", "_t0")
+
+    def __init__(self, metrics: "Metrics", name: str):
+        self._metrics = metrics
+        self._name = name
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._metrics.observe(
+            self._name, (time.perf_counter() - self._t0) * 1000.0
+        )
+        return False
+
+
+def escape_label_value(value: object) -> str:
+    """Prometheus text-format label-value escaping: backslash, double
+    quote, and newline are the three characters the spec requires escaped
+    inside ``name{k="v"}`` — anything else passes through verbatim."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def _labeled(name: str, labels: Optional[Dict[str, object]]) -> str:
+    """Encode a labeled series/counter key in Prometheus exposition form:
+    ``name{k="v",...}`` with keys sorted and values escaped per the text
+    format, so the same label set always maps to the same key and the prom
+    exporter can re-emit it verbatim. Plain (label-less) instruments keep
+    their bare name — zero cost on the existing hot paths."""
+    if not labels:
+        return name
+    body = ",".join(
+        f'{k}="{escape_label_value(labels[k])}"' for k in sorted(labels)
+    )
+    return f"{name}{{{body}}}"
+
+
+# Distinct label sets admitted per metric family before new sets collapse
+# into the overflow bucket. 2048 clears `match_slot` at S=1024 with
+# headroom for a second dimension; a runaway producer (slot x reason x
+# peer, say) lands in ``name{overflow="true"}`` instead of growing the
+# exposition without bound.
+DEFAULT_LABEL_CARDINALITY = 2048
+_OVERFLOW_KEY = '{overflow="true"}'
+
+
+class Metrics:
+    def __init__(
+        self, label_cardinality: int = DEFAULT_LABEL_CARDINALITY
+    ) -> None:
+        self.counters: Dict[str, float] = collections.defaultdict(float)
+        self.series: Dict[str, List[float]] = collections.defaultdict(list)
+        self._created = time.perf_counter()
+        self.label_cardinality = int(label_cardinality)
+        self._label_sets: Dict[str, set] = {}  # family -> admitted blocks
+        self.label_sets_dropped = 0
+        # (name, sorted label items) -> encoded key. Admitted sets only,
+        # so it is bounded by the cardinality cap per family; it spares
+        # the hot serve loop the escape/format work per labeled call
+        # (S=256 slots x several labeled counts per tick).
+        self._key_cache: Dict[tuple, str] = {}
+
+    def _key(self, name: str, labels: Optional[Dict[str, object]]) -> str:
+        """Storage key with the cardinality guard applied: once a family
+        holds `label_cardinality` distinct label sets, further NEW sets
+        map to the family's overflow bucket and bump `label_sets_dropped`
+        (also surfaced as a counter), keeping exposition size bounded no
+        matter what callers label with. Already-admitted sets keep
+        resolving to their own key."""
+        if not labels:
+            return name
+        try:
+            ck = (name, tuple(sorted(labels.items())))
+            cached = self._key_cache.get(ck)
+            if cached is not None:
+                return cached
+        except TypeError:  # unhashable label value — encode uncached
+            ck = None
+        key = _labeled(name, labels)
+        seen = self._label_sets.get(name)
+        if seen is None:
+            seen = self._label_sets[name] = set()
+        if key not in seen:
+            if len(seen) >= self.label_cardinality:
+                self.label_sets_dropped += 1
+                self.counters["label_sets_dropped"] += 1
+                return name + _OVERFLOW_KEY
+            seen.add(key)
+        if ck is not None:
+            self._key_cache[ck] = key
+        return key
+
+    # -- instruments ----------------------------------------------------
+
+    def count(
+        self, name: str, n: float = 1,
+        labels: Optional[Dict[str, object]] = None,
+    ) -> None:
+        self.counters[self._key(name, labels)] += n
+
+    def observe(
+        self, name: str, value: float,
+        labels: Optional[Dict[str, object]] = None,
+    ) -> None:
+        s = self.series[self._key(name, labels)]
+        s.append(float(value))
+        if len(s) > 100_000:  # bound memory on long sessions
+            del s[: len(s) // 2]
+
+    def timer(self, name: str) -> Timer:
+        return Timer(self, f"{name}_ms")
+
+    # -- reporting ------------------------------------------------------
+
+    @staticmethod
+    def _percentile(sorted_vals: List[float], q: float) -> float:
+        if not sorted_vals:
+            return 0.0
+        idx = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+        return sorted_vals[idx]
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per-series {count, mean, p50, p95, p99, max} + raw counters +
+        uptime-normalized rates."""
+        out: Dict[str, Dict[str, float]] = {}
+        for name, vals in self.series.items():
+            sv = sorted(vals)
+            out[name] = {
+                "count": len(sv),
+                "mean": sum(sv) / len(sv) if sv else 0.0,
+                "p50": self._percentile(sv, 0.50),
+                "p95": self._percentile(sv, 0.95),
+                "p99": self._percentile(sv, 0.99),
+                "max": sv[-1] if sv else 0.0,
+            }
+        elapsed = max(time.perf_counter() - self._created, 1e-9)
+        for name, val in self.counters.items():
+            out[name] = {"total": val, "per_sec": val / elapsed}
+        return out
+
+    @staticmethod
+    def _fmt(v) -> str:
+        # Integral stats (count, whole-valued totals) read as integers;
+        # "count=123.000" is noise.
+        if isinstance(v, float):
+            return str(int(v)) if v.is_integer() else f"{v:.3f}"
+        return str(v)
+
+    def report(self) -> str:
+        lines = []
+        for name, stats in sorted(self.summary().items()):
+            body = " ".join(
+                f"{k}={self._fmt(v)}" for k, v in stats.items()
+            )
+            lines.append(f"{name}: {body}")
+        return "\n".join(lines)
+
+
+class _NullTimer:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _NullMetrics(Metrics):
+    """Shared no-op sink; every instrument call is O(1) and allocation-free."""
+
+    _timer = _NullTimer()
+
+    def __init__(self) -> None:  # no dict churn
+        pass
+
+    def count(self, name: str, n: float = 1, labels=None) -> None:
+        pass
+
+    def observe(self, name: str, value: float, labels=None) -> None:
+        pass
+
+    def timer(self, name: str) -> _NullTimer:  # type: ignore[override]
+        return self._timer
+
+    def summary(self):
+        return {}
+
+    def report(self) -> str:
+        return "(metrics disabled)"
+
+
+null_metrics = _NullMetrics()
