@@ -1,13 +1,23 @@
-"""Boids flocking: the entity-count scaling model, dense interactions.
+"""Boids flocking: the entity-count scaling model.
 
-Counterpart of the dense part of ``bevy_ggrs_tpu/models/boids.py``. All
-boids couple through separation, alignment and cohesion, an O(N²)
-pairwise interaction per frame; players steer flock leaders with the same
-u8 bitmask as box_game. The pairwise forces go through the hand-written
-kernel (:func:`bevy_ggrs_tpu_torch.ops.pairwise.pairwise_force_rows`, the
-counterpart of ``kernel="pallas"``) on a GPU and through its plain
-version on the CPU. The matrix-unit kernels and grid mode are later parts
-of the port.
+Counterpart of ``bevy_ggrs_tpu/models/boids.py`` on one device. All boids
+couple through separation, alignment and cohesion; players steer flock
+leaders with the same u8 bitmask as box_game. The pair interaction runs in
+one of three hand-written kernels on a GPU, and in its plain version on
+the CPU:
+
+- ``kernel="pallas"``, dense: the f32 force kernel
+  (:func:`bevy_ggrs_tpu_torch.ops.pairwise.pairwise_force_rows`);
+- ``kernel="mxu"``, dense: the tensor-core kernels, the triangle
+  (:func:`~bevy_ggrs_tpu_torch.ops.pairwise.pairwise_force_square_mxu_tri`)
+  at 4,096 boids and more, the general one
+  (:func:`~bevy_ggrs_tpu_torch.ops.pairwise.pairwise_force_rows_mxu2`)
+  below;
+- ``mode="grid"`` with either kernel: the neighbour grid
+  (:mod:`bevy_ggrs_tpu_torch.ops.neighbor`), its per-cell sums in the cell
+  kernel (:func:`~bevy_ggrs_tpu_torch.ops.cell_gather.cell_slot_forces`).
+
+The paths are allclose to each other, not bitwise: a session uses one.
 """
 
 from __future__ import annotations
@@ -19,7 +29,10 @@ import numpy as np
 import torch
 
 from bevy_ggrs_tpu_torch.models.box_game import increment_u32
+from bevy_ggrs_tpu_torch.ops import neighbor
+from bevy_ggrs_tpu_torch.ops import pairwise as pw
 from bevy_ggrs_tpu_torch.ops.pairwise import (
+    _squared,
     pairwise_force_rows as pairwise_force_rows_kernel,
     pairwise_force_rows_plain,
 )
@@ -188,23 +201,129 @@ def increase_frame_system(state: WorldState, inputs: PlayerInputs) -> WorldState
     )
 
 
-def make_schedule(kernel: str = "pallas", mode: Optional[str] = None) -> Schedule:
-    """The boids schedule: dense flocking forces, then the frame count.
+def flock_system_mxu(state: WorldState, inputs: PlayerInputs) -> WorldState:
+    """:func:`flock_system` with the neighbourhood sums on the tensor
+    cores. The dispatch is static by world size, as in JAX: the triangle
+    kernel for the square all-vs-all case at 4,096 boids and more, the
+    general kernel below, so every world size uses one float path."""
+    params = _kernel_params()
 
-    ``kernel="pallas"`` names the JAX package's tiled force kernel, whose
-    counterpart here is the CUDA force kernel. The matrix-unit kernels
-    (``kernel="mxu"``) and the neighbour grid (``mode="grid"`` or
-    ``"auto"``) are not ported yet."""
-    if kernel == "mxu":
+    def forces(pos, vel, active):
+        if pos.shape[0] >= 4096:
+            return pw.pairwise_force_square_mxu_tri(pos, vel, active, **params)
+        return pw.pairwise_force_rows_mxu2(pos, vel, pos, vel, active, active,
+                                           **params)
+
+    return _flock_step(state, inputs, forces)
+
+
+# ---------------------------------------------------------------------------
+# Grid mode: the same rules over the neighbour grid, O(N·(9K+S)) pairs.
+# ---------------------------------------------------------------------------
+
+
+def _flock_accumulate(dx, dy, d2, row, col):
+    """Per-pair flocking terms, with the masks of
+    :func:`pairwise_force_rows`: the same f32 d² thresholds and the same
+    d ≈ 0 self-exclusion, so borderline pairs classify alike in both
+    modes."""
+    both = row["active"] * col["active"]
+    is_self = (d2 < 1e-10).to(torch.float32)
+    neigh = both * (d2 < _squared(NEIGHBOR_RADIUS)).to(torch.float32) * (1.0 - is_self)
+    inv_d = torch.rsqrt(torch.clamp(d2, min=1e-12))
+    close = neigh * (d2 < _squared(SEPARATION_RADIUS)).to(torch.float32)
+    w = inv_d * close
+    return (
+        neigh,                                  # neighbour count
+        dx * w, dy * w,                         # separation
+        col["vx"] * neigh, col["vy"] * neigh,   # alignment sums
+        col["px"] * neigh, col["py"] * neigh,   # cohesion sums
+    )
+
+
+def _flock_combine(sums, row):
+    n, sx, sy, svx, svy, spx, spy = sums
+    n_safe = torch.clamp(n, min=1.0)
+    has = (n > 0).to(torch.float32)
+    ws, wa, wc = float(W_SEPARATION), float(W_ALIGNMENT), float(W_COHESION)
+    fx = (ws * sx + wa * (svx / n_safe - row["vx"]) * has
+          + wc * (spx / n_safe - row["px"]) * has)
+    fy = (ws * sy + wa * (svy / n_safe - row["vy"]) * has
+          + wc * (spy / n_safe - row["py"]) * has)
+    return (fx * row["active"], fy * row["active"])
+
+
+FLOCK_PAIR_KERNEL = neighbor.PairKernel(
+    radius=float(NEIGHBOR_RADIUS),
+    out_dim=2,
+    n_terms=7,
+    accumulate=_flock_accumulate,
+    combine=_flock_combine,
+    row_feats=("vx", "vy"),
+    col_feats=("vx", "vy"),
+    name="flock",
+    params=pw._launch_params(**_kernel_params()),
+)
+
+
+def grid_config(num_boids: int) -> neighbor.GridConfig:
+    """The boids neighbour grid: cell edge ``NEIGHBOR_RADIUS`` over the
+    ±``WORLD_HALF`` torus (spawn-spiral positions beyond it alias modulo G,
+    false candidates that the radius mask rejects)."""
+    return neighbor.default_grid_config(
+        num_boids, float(NEIGHBOR_RADIUS), float(WORLD_HALF))
+
+
+def _grid_forces(pos, vel, active, impl):
+    return neighbor.interact(
+        pos, active, FLOCK_PAIR_KERNEL,
+        feats={"vx": vel[:, 0], "vy": vel[:, 1]},
+        mode="grid", config=grid_config(pos.shape[0]), impl=impl,
+    )
+
+
+def flock_system_grid(state: WorldState, inputs: PlayerInputs) -> WorldState:
+    """:func:`flock_system` over the neighbour grid, the per-cell sums in
+    the cell kernel's plain version on any device."""
+    return _flock_step(state, inputs, lambda p, v, a: _grid_forces(p, v, a, "xla"))
+
+
+def flock_system_grid_pallas(state: WorldState, inputs: PlayerInputs) -> WorldState:
+    """:func:`flock_system` over the neighbour grid, the per-cell sums in
+    the cell kernel (its plain version for a CPU state): the single-device
+    path for tens of thousands of boids."""
+    return _flock_step(state, inputs, lambda p, v, a: _grid_forces(p, v, a, "pallas"))
+
+
+_DENSE_SYSTEMS = {"pallas": flock_system, "mxu": flock_system_mxu}
+
+
+def make_schedule(kernel: str = "pallas", mode: Optional[str] = None) -> Schedule:
+    """The boids schedule: flocking forces, then the frame count.
+
+    ``kernel`` names the JAX package's kernel whose counterpart computes
+    the dense forces: ``"pallas"`` (the f32 force kernel) or ``"mxu"``
+    (the tensor-core kernels). ``mode`` picks the interaction structure:
+    ``"dense"``, ``"grid"`` (either kernel then routes the per-cell sums
+    through the cell kernel), ``"auto"`` (grid at
+    ``neighbor.GRID_AUTO_THRESHOLD`` boids and more) or ``None`` (dense,
+    unless ``GGRS_FORCE_MODE`` or the process default says otherwise); it
+    resolves through :func:`bevy_ggrs_tpu_torch.ops.neighbor.resolve_mode`
+    at every step. ``kernel="xla"``, whose purpose is partitioning across
+    devices, waits for the port's sharding."""
+    if kernel == "xla":
         raise NotImplementedError(
-            "the matrix-unit force kernels are not ported yet (ROADMAP.md, "
-            "port queue: 'Entity models and the grid')"
+            "kernel='xla' exists for entity sharding, which is not ported "
+            "yet (ROADMAP.md, port queue: 'Sharding')"
         )
-    if kernel != "pallas":
+    if kernel not in _DENSE_SYSTEMS:
         raise ValueError(f"unknown force kernel {kernel!r}")
-    if mode not in (None, "dense"):
-        raise NotImplementedError(
-            f"interaction mode {mode!r} is not ported yet (ROADMAP.md, port "
-            "queue: 'Entity models and the grid')"
-        )
-    return Schedule([flock_system, increase_frame_system])
+    neighbor.resolve_mode(mode, 0)  # rejects an unknown mode now
+    dense_system = _DENSE_SYSTEMS[kernel]
+
+    def flock(state: WorldState, inputs: PlayerInputs) -> WorldState:
+        n = state.components["position"].shape[0]
+        grid = neighbor.resolve_mode(mode, n) == "grid"
+        return (flock_system_grid_pallas if grid else dense_system)(state, inputs)
+
+    return Schedule([flock, increase_frame_system])

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` at first CUDA use into ``bevy_ggrs_tpu_torch/_build/`` and loaded
-with ``ctypes``; the library's file name carries a hash of the source and
-flags, so an edited source builds anew. Nothing here runs at import time,
-so the package imports on a machine without ``nvcc``.
+with ``ctypes``; the library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source builds
+anew. Nothing here runs at import time, so the package imports on a
+machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 
-KERNELS = ("checksum", "pairwise")
+KERNELS = ("checksum", "pairwise", "pairwise_mxu", "pairwise_tri", "cell_gather")
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,8 +44,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _SRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in [_SRC / f"{name}.cu", *sorted(_SRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     return _OUT / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,21 +1,29 @@
-"""Dense all-pairs boids forces through the hand-written CUDA kernel.
+"""Dense all-pairs boids forces through the hand-written CUDA kernels.
 
-Counterpart of ``bevy_ggrs_tpu/ops/pairwise.py``'s
-``pairwise_force_rows_pallas``: the separation / alignment / cohesion
-force on ``R`` row boids from ``N`` column boids (the row-subset contract
-a sharded caller uses), with the same five float parameters. The kernel
-is ``csrc/pairwise.cu``; :func:`pairwise_force_rows_plain` is its plain
-PyTorch version, taken for CPU tensors.
+Counterpart of ``bevy_ggrs_tpu/ops/pairwise.py``: the separation /
+alignment / cohesion force on ``R`` row boids from ``N`` column boids (the
+row-subset contract a sharded caller uses), with the same five float
+parameters, in three kernels:
 
-The kernel sums the columns in one fixed order without atomics, so it is
-bitwise equal to itself from launch to launch; against the plain version
-and the JAX paths it is allclose (another summation order, and CUDA's
-``rsqrtf``).
+- :func:`pairwise_force_rows` (``csrc/pairwise.cu``), for
+  ``pairwise_force_rows_pallas``: f32 sums on the CUDA cores;
+- :func:`pairwise_force_rows_mxu2` (``csrc/pairwise_mxu.cu``), for
+  ``pairwise_force_rows_mxu2``: the neighbourhood sums as bf16 products of
+  pair matrices with hi/lo-split features, on the tensor cores;
+- :func:`pairwise_force_square_mxu_tri` (``csrc/pairwise_tri.cu``), for
+  ``pairwise_force_square_mxu_tri``: the square all-vs-all case of the
+  second with each pair's masks built once for both boids.
+
+Each has a ``*_plain`` PyTorch version, taken for CPU tensors. Every
+kernel sums in one fixed order without float atomics, so it is bitwise
+equal to itself from launch to launch; against its plain version and the
+JAX paths it is allclose (another summation order, and CUDA's ``rsqrtf``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -28,6 +36,30 @@ def _squared(radius: float) -> float:
     (``jnp.float32(radius) ** 2``)."""
     r = np.float32(radius)
     return float(r * r)
+
+
+def _check_inputs(**expected) -> torch.device:
+    """Check that every ``name=(tensor, shape)`` is float32 of that shape on
+    one device, and return the device. A CPU device passes as it is; any
+    other must be CUDA, with contiguous tensors and at least one boid, or
+    this raises: the wrappers launch their kernel there or fail."""
+    device = next(iter(expected.values()))[0].device
+    for name, (t, shape) in expected.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be float32{list(shape)}, got "
+                             f"{t.dtype}{list(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} lies on {t.device}, not {device}")
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    for name, (t, shape) in expected.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if shape[0] == 0:
+            raise ValueError(f"{name} holds no boids")
+    return device
 
 
 def pairwise_force_rows_plain(
@@ -101,42 +133,253 @@ def pairwise_force_rows(
                   w_separation=w_separation, w_alignment=w_alignment,
                   w_cohesion=w_cohesion)
     R, N = row_pos.shape[0], all_pos.shape[0]
-    expected = {
-        "row_pos": (row_pos, (R, 2)), "row_vel": (row_vel, (R, 2)),
-        "all_pos": (all_pos, (N, 2)), "all_vel": (all_vel, (N, 2)),
-        "row_active": (row_active, (R,)), "all_active": (all_active, (N,)),
-    }
-    device = row_pos.device
-    for name, (t, shape) in expected.items():
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be float32{list(shape)}, got "
-                             f"{t.dtype}{list(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} lies on {t.device}, not {device}")
+    device = _check_inputs(
+        row_pos=(row_pos, (R, 2)), row_vel=(row_vel, (R, 2)),
+        all_pos=(all_pos, (N, 2)), all_vel=(all_vel, (N, 2)),
+        row_active=(row_active, (R,)), all_active=(all_active, (N,)))
     if device.type == "cpu":
         return pairwise_force_rows_plain(
             row_pos, row_vel, all_pos, all_vel, row_active, all_active,
             **params)
-    if device.type != "cuda":
-        raise ValueError(f"no kernel for device {device}")
-    for name, (t, _) in expected.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if R == 0:
-        raise ValueError("no row boids")
     out = torch.empty((R, 2), dtype=torch.float32, device=device)
     fn = _build.function("pairwise", "ggrs_pairwise_force_rows", _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
                  all_pos.data_ptr(), all_vel.data_ptr(), all_active.data_ptr(),
-                 out.data_ptr(), R, N,
-                 _squared(neighbor_radius), _squared(separation_radius),
-                 float(np.float32(w_separation)), float(np.float32(w_alignment)),
-                 float(np.float32(w_cohesion)), stream)
+                 out.data_ptr(), R, N, *_launch_params(**params), stream)
     _build.check(err, "pairwise_force_rows")
     pairwise_force_rows.launches += 1
     return out
 
 
 pairwise_force_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Tensor-core variants: the neighbourhood sums as pair-matrix products
+# ---------------------------------------------------------------------------
+
+
+def _hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` as ``bf16(x) + bf16(x - bf16(x))``, both rounded to nearest
+    even, as JAX's ``astype`` and CUDA's ``__float2bfloat16_rn`` round."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def _lane_feats(px, py, vx, vy, act) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[N]`` column coordinates -> the bf16 hi/lo feature stacks
+    ``(feat_t[10, N], sep_t[6, N])``. Activity multiplies into the
+    features here, so inactive and padded columns vanish from every
+    neighbourhood sum."""
+    f32feat = torch.stack([act, act * px, act * py, act * vx, act * vy])
+    hi, lo = _hi_lo(f32feat)
+    return torch.cat([hi, lo]), torch.cat([hi[0:3], lo[0:3]])
+
+
+def _pair_masks(rpx, rpy, cpx, cpy, *, neighbor_radius, separation_radius):
+    """Rows ``[R, 1]`` against columns ``[1, C]`` -> the bf16 neighbour
+    mask and the hi/lo halves of the separation weight, ``[R, C]`` each.
+
+    ``d2`` and the compares stay f32. ``rsqrt(d2)`` takes no clamp and
+    ``where`` selects it: pairs with ``d2 < 1e-10`` are outside ``nb``, so
+    an ``inf`` is never selected (a product with the mask would make it a
+    NaN)."""
+    dx = rpx - cpx
+    dy = rpy - cpy
+    d2 = dx * dx + dy * dy
+    nb = (d2 < _squared(neighbor_radius)) & (d2 >= 1e-10)
+    w = torch.where(nb & (d2 < _squared(separation_radius)), torch.rsqrt(d2), 0.0)
+    w_hi, w_lo = _hi_lo(w)
+    return nb.to(torch.bfloat16), w_hi, w_lo
+
+
+def _acc_sums(acc_n, acc_w, cacc_n=None, cacc_w=None):
+    """Hi + lo sums of the accumulator rows (``acc_n[10, R]``,
+    ``acc_w[6, R]``); the triangle's column-side accumulators, when given,
+    add to each row first."""
+    def row(acc, cacc, i):
+        return acc[i] if cacc is None else acc[i] + cacc[i]
+
+    n = row(acc_n, cacc_n, 0) + row(acc_n, cacc_n, 5)
+    spx = row(acc_n, cacc_n, 1) + row(acc_n, cacc_n, 6)
+    spy = row(acc_n, cacc_n, 2) + row(acc_n, cacc_n, 7)
+    svx = row(acc_n, cacc_n, 3) + row(acc_n, cacc_n, 8)
+    svy = row(acc_n, cacc_n, 4) + row(acc_n, cacc_n, 9)
+    sw = row(acc_w, cacc_w, 0) + row(acc_w, cacc_w, 3)
+    swx = row(acc_w, cacc_w, 1) + row(acc_w, cacc_w, 4)
+    swy = row(acc_w, cacc_w, 2) + row(acc_w, cacc_w, 5)
+    return n, spx, spy, svx, svy, sw, swx, swy
+
+
+def _combine_forces(sums, rpx, rpy, rvx, rvy, ra, *,
+                    w_separation, w_alignment, w_cohesion):
+    """The accumulator sums (from :func:`_acc_sums`) -> the ``[R]`` force
+    components. The separation sum of pair differences is
+    ``rpx·Σw − Σw·cpx``."""
+    n, spx, spy, svx, svy, sw, swx, swy = sums
+    n_safe = torch.clamp(n, min=1.0)
+    has = (n > 0).to(torch.float32)
+    fx = (w_separation * (rpx * sw - swx)
+          + w_alignment * (svx / n_safe - rvx) * has
+          + w_cohesion * (spx / n_safe - rpx) * has)
+    fy = (w_separation * (rpy * sw - swy)
+          + w_alignment * (svy / n_safe - rvy) * has
+          + w_cohesion * (spy / n_safe - rpy) * has)
+    return fx * ra, fy * ra
+
+
+def _mxu_forces(row_pos, row_vel, row_active, col_pos, feat_t, sep_t, *,
+                neighbor_radius, separation_radius, **weights):
+    neigh, w_hi, w_lo = _pair_masks(
+        row_pos[:, 0:1], row_pos[:, 1:2], col_pos[None, :, 0],
+        col_pos[None, :, 1], neighbor_radius=neighbor_radius,
+        separation_radius=separation_radius)
+    # bf16 x bf16 products are exact in f32: the plain version multiplies
+    # the upcast operands in f32 (with TF32 off on the card).
+    feat, sep = feat_t.to(torch.float32), sep_t.to(torch.float32)
+    acc_n = feat @ neigh.to(torch.float32).T  # [10, R]
+    acc_w = sep @ w_hi.to(torch.float32).T + sep @ w_lo.to(torch.float32).T
+    fx, fy = _combine_forces(
+        _acc_sums(acc_n, acc_w), row_pos[:, 0], row_pos[:, 1],
+        row_vel[:, 0], row_vel[:, 1], row_active, **weights)
+    return torch.stack([fx, fy], dim=1)
+
+
+def _feats_of(pos, vel, active):
+    return _lane_feats(pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], active)
+
+
+def pairwise_force_rows_mxu2_plain(
+    row_pos: torch.Tensor,  # f32[R, 2]
+    row_vel: torch.Tensor,  # f32[R, 2]
+    all_pos: torch.Tensor,  # f32[N, 2]
+    all_vel: torch.Tensor,  # f32[N, 2]
+    row_active: torch.Tensor,  # f32[R]
+    all_active: torch.Tensor,  # f32[N]
+    **params,
+) -> torch.Tensor:
+    """Plain PyTorch version of the tensor-core kernel: the bf16 pair
+    matrices over dense ``[R, N]`` tensors, one f32 product each."""
+    feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
+    return _mxu_forces(row_pos, row_vel, row_active, all_pos, feat_t, sep_t,
+                       **params)
+
+
+def pairwise_force_square_mxu_tri_plain(
+    pos: torch.Tensor,  # f32[N, 2]
+    vel: torch.Tensor,  # f32[N, 2]
+    active: torch.Tensor,  # f32[N]
+    **params,
+) -> torch.Tensor:
+    """Plain PyTorch version of the triangle kernel: the same function,
+    every boid against every boid, over the full ``[N, N]`` pair matrices
+    (building each pair's masks once is the kernel's saving)."""
+    feat_t, sep_t = _feats_of(pos, vel, active)
+    return _mxu_forces(pos, vel, active, pos, feat_t, sep_t, **params)
+
+
+def _launch_params(neighbor_radius, separation_radius, w_separation,
+                   w_alignment, w_cohesion):
+    return (_squared(neighbor_radius), _squared(separation_radius),
+            float(np.float32(w_separation)), float(np.float32(w_alignment)),
+            float(np.float32(w_cohesion)))
+
+
+_MXU_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+
+
+def pairwise_force_rows_mxu2(
+    row_pos: torch.Tensor,
+    row_vel: torch.Tensor,
+    all_pos: torch.Tensor,
+    all_vel: torch.Tensor,
+    row_active: torch.Tensor,
+    all_active: torch.Tensor,
+    **params,
+) -> torch.Tensor:
+    """``f32[R, 2]`` flocking force on each row boid from all boids, the
+    sums on the tensor cores. ``params`` are the five floats of
+    :func:`pairwise_force_rows`.
+
+    A CPU tensor takes :func:`pairwise_force_rows_mxu2_plain`; a CUDA
+    tensor launches ``csrc/pairwise_mxu.cu`` on the current stream, with
+    the feature stacks built here in PyTorch, and anything it cannot take
+    raises."""
+    R, N = row_pos.shape[0], all_pos.shape[0]
+    device = _check_inputs(
+        row_pos=(row_pos, (R, 2)), row_vel=(row_vel, (R, 2)),
+        all_pos=(all_pos, (N, 2)), all_vel=(all_vel, (N, 2)),
+        row_active=(row_active, (R,)), all_active=(all_active, (N,)))
+    if device.type == "cpu":
+        return pairwise_force_rows_mxu2_plain(
+            row_pos, row_vel, all_pos, all_vel, row_active, all_active,
+            **params)
+    feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
+    out = torch.empty((R, 2), dtype=torch.float32, device=device)
+    fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
+                         _MXU_ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
+                 all_pos.data_ptr(), feat_t.data_ptr(), sep_t.data_ptr(),
+                 out.data_ptr(), R, N, *_launch_params(**params), stream)
+    _build.check(err, "pairwise_force_rows_mxu2")
+    pairwise_force_rows_mxu2.launches += 1
+    return out
+
+
+pairwise_force_rows_mxu2.launches = 0
+
+TRI_TILE = 64  # the triangle kernel's tile edge (csrc/pair_mxu.cuh kTile)
+_TRI_PARTS = 16  # accumulator rows kept per boid and tile side
+
+_TRI_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+
+
+def tri_scratch_shape(n: int) -> Tuple[int, int, int]:
+    """Shape of each of the triangle kernel's two partial-sum buffers: one
+    ``[16, 64]`` block per upper-triangle tile."""
+    nb = -(-n // TRI_TILE)
+    return nb * (nb + 1) // 2, _TRI_PARTS, TRI_TILE
+
+
+def pairwise_force_square_mxu_tri(
+    pos: torch.Tensor,
+    vel: torch.Tensor,
+    active: torch.Tensor,
+    **params,
+) -> torch.Tensor:
+    """``f32[N, 2]`` all-vs-all flocking force, each pair's masks built once
+    for both boids (square case only: every boid is a row and a column).
+
+    A CPU tensor takes :func:`pairwise_force_square_mxu_tri_plain`; a CUDA
+    tensor launches the two passes of ``csrc/pairwise_tri.cu`` on the
+    current stream, with their partial-sum scratch allocated here, and
+    anything it cannot take raises."""
+    N = pos.shape[0]
+    device = _check_inputs(pos=(pos, (N, 2)), vel=(vel, (N, 2)),
+                           active=(active, (N,)))
+    if device.type == "cpu":
+        return pairwise_force_square_mxu_tri_plain(pos, vel, active, **params)
+    feat_t, sep_t = _feats_of(pos, vel, active)
+    rowpart = torch.empty(tri_scratch_shape(N), dtype=torch.float32, device=device)
+    colpart = torch.empty_like(rowpart)
+    out = torch.empty((N, 2), dtype=torch.float32, device=device)
+    fn = _build.function("pairwise_tri", "ggrs_pairwise_force_square_tri",
+                         _TRI_ARGTYPES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pos.data_ptr(), vel.data_ptr(), active.data_ptr(),
+                 feat_t.data_ptr(), sep_t.data_ptr(), rowpart.data_ptr(),
+                 colpart.data_ptr(), out.data_ptr(), N,
+                 *_launch_params(**params), stream)
+    _build.check(err, "pairwise_force_square_mxu_tri")
+    pairwise_force_square_mxu_tri.launches += 1
+    return out
+
+
+pairwise_force_square_mxu_tri.launches = 0

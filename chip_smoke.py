@@ -5,9 +5,9 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
-1. Device and build: the card's name and power limit, then both CUDA
-   kernels built from ``bevy_ggrs_tpu_torch/csrc`` (one ``nvcc`` each, in
-   parallel).
+1. Device and build: the card's name and power limit, then the five CUDA
+   kernels built from ``bevy_ggrs_tpu_torch/csrc`` (one ``nvcc`` each, all
+   started together), with ptxas's register and shared-memory report.
 2. Checksum kernel against its plain version on the card: random worlds
    (bool/u8/i32/f32 components, more than 64 words a slot, ragged
    capacities), single worlds and stacked ring rows, bitwise.
@@ -21,15 +21,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``check_distance`` 7, 120 frames, no mismatch; the force kernel ran once
    per advanced frame and the checksum kernel at least once per save. Its
    first frames agree with the plain CPU path within ``atol=1e-5``.
-6. Times with CUDA events: each kernel and its plain version at the main
+6. Tensor-core force kernels against their plain versions on the card,
+   on spawn-spiral flocks with every 7th boid inactive: the general kernel
+   at N = 1,024, 1,000 and rows 256..512 of 1,024, the triangle at
+   N = 4,096 and 4,100, within ``1e-4`` of the largest force; and on
+   uniform random flocks, whose near-coincident pairs amplify the hi/lo
+   rounding, within ``1e-3`` of it. A second launch is bitwise equal to
+   the first.
+7. Cell kernel against its plain version on the card, on the
+   boids-32,768 grid tables and on a clustered 600-boid grid that spills,
+   within ``atol=1e-5``, bitwise from launch to launch; the clustered
+   grid's forces within ``1e-5`` of the dense f32 forces; a pair kernel
+   without an instantiation is refused. Binning on ``cuda`` is bitwise
+   equal to binning on the CPU at 32,768 boids.
+8. boids SyncTests at entity scale on ``cuda``, ``check_distance`` 7, no
+   mismatch: 1,024 boids with ``kernel="mxu"`` (120 frames, the general
+   tensor-core kernel), 4,096 with ``kernel="mxu"`` (60 frames, the
+   triangle) and 32,768 with ``kernel="mxu", mode="grid"`` (60 frames, the
+   cell kernel). The path's kernel ran once per advanced frame and no other
+   force kernel ran; one step agrees with the plain version (on the CPU
+   for the dense runs, on the card for the grid) within ``1e-4``, as the
+   JAX suite holds one mxu step; the
+   grid's statistics are printed at the first and the last frame.
+9. Times with CUDA events: each kernel and its plain version at the main
    path's shapes, on the device alone (a CUDA graph of many calls,
    replayed) and per call with the host's work, beside the least time the
    card could take for the same work; the main path's pieces around the
-   kernels; and the per-tick times of phases 4 and 5.
+   kernels; the per-tick times of phases 4, 5 and 8; and, under
+   ``torch.profiler``, the device's busy time per tick of the boids
+   SyncTests, continued for 8 more ticks after their counts were read.
 
-The kernel counters are set to 0 just before each SyncTest of phases 4-5
-and read just after; launches made to compare a kernel with its plain
-version are not counted. The last three lines are the kernel table
+The kernel counters are set to 0 just before each SyncTest of phases 4, 5
+and 8 and read just after; launches made to compare a kernel with its
+plain version are not counted. The last three lines are the kernel table
 (JSON), the card's name and power limit, and the result (JSON).
 """
 
@@ -52,12 +76,38 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_I32_PER_S = 33.5e12
+PEAK_BF16_TC_PER_S = 989e12  # dense bf16 on the tensor cores
 
 CHECKSUM_OPS_PER_WORD = 2 * 11  # both lanes: 3 mul, 2 rotate (3 ops each), xor, add
 FMIX_OPS = 2 * 8
 FORCE_OPS_PER_PAIR = 30  # 26 float ops, 3 compares and one rsqrt per pair
+# Tensor-core kernels, per pair: the masks on the CUDA cores (2 subtracts,
+# 2 multiplies and an add for d2, 3 compares, 2 ands, rsqrt, select, 3
+# conversions to bf16, one back and a subtract for the lo half: 18), and
+# the useful products on the tensor cores (2 flops x (10 + 6 + 6) feature
+# rows: 44).
+MXU_MASK_OPS_PER_PAIR = 18
+MXU_TC_FLOPS_PER_PAIR = 44
 FORCE_ATOL = 2e-6
 BOIDS_ATOL = 1e-5
+# The tensor-core kernels and their plain versions multiply the same bf16
+# operands, whose products are exact in f32; they differ only in the order
+# and rounding of the f32 sums, which the separation's rpx·Σw − Σw·cpx
+# cancellation amplifies. On spawn-spiral flocks (the main path's data)
+# that stays under 1e-4 of the largest force; a uniform random flock has
+# near-coincident pairs whose 1/d weights reach 1e4, and there the bound
+# is the JAX suite's own class for these kernels, 1e-3.
+MXU_RTOL = 1e-4
+MXU_RANDOM_RTOL = 1e-3
+# One step of a boids schedule against its plain version: the JAX suite's
+# one-step tolerance for the mxu path against XLA (tests/test_ops.py:290).
+# The speed clamp rescales near-zero velocities to MIN_SPEED, magnifying
+# the force paths' ~1e-6 (tensor cores) or ~3e-7 (cell kernel) difference
+# to ~1e-5.
+STEP_ATOL = 1e-4
+# The cell kernel and its plain version sum the same f32 terms in another
+# order (and CUDA's rsqrtf): the JAX suite's grid tolerance.
+CELL_ATOL = 1e-5
 DT = 1.001 / 60.0  # one simulation step per update for well over 300 updates
 
 
@@ -229,7 +279,151 @@ def check_force_kernel(tpw, params) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phases 4-5: SyncTest sessions through GGRSPlugin
+# Phase 6: the tensor-core force kernels
+# ---------------------------------------------------------------------------
+
+
+def spiral_flock(boids, n: int):
+    """The main path's data: ``make_world``'s spawn spiral, every 7th boid
+    inactive."""
+    state = boids.make_world(n, 2, device="cuda").commit()
+    active = torch.ones(n, device="cuda")
+    active[::7] = 0.0
+    return state.components["position"], state.components["velocity"], active
+
+
+def held(name: str, a, b, again, rtol: float) -> float:
+    """Check kernel output ``a`` against plain ``b`` within ``rtol`` of the
+    largest force and bitwise against its repeat ``again``; returns the
+    error."""
+    torch.cuda.synchronize()
+    scale = b.abs().max().item()
+    err = (a - b).abs().max().item()
+    check(scale > 1e-3, f"{name}: forces all near zero")
+    check(err <= rtol * scale, f"{name}: error {err} over {rtol} x {scale}")
+    check(torch.equal(a, again), f"{name}: launch to launch")
+    print(f"{name}: max_abs_err={err:.3e} (limit {rtol} x scale {scale:.4f}) "
+          f"repeat bitwise")
+    return err
+
+
+def check_mxu_kernels(tpw, boids, params) -> dict:
+    worst = {"mxu2": 0.0, "tri": 0.0}
+    for data, rtol in (("spiral", MXU_RTOL), ("random", MXU_RANDOM_RTOL)):
+        def flock(n):
+            return spiral_flock(boids, n) if data == "spiral" else flock_inputs(n, seed=n)
+
+        for n, rows in ((1024, slice(0, 1024)), (1000, slice(0, 1000)),
+                        (1024, slice(256, 512))):
+            pos, vel, act = flock(n)
+            args = (pos[rows].contiguous(), vel[rows].contiguous(), pos, vel,
+                    act[rows].contiguous(), act)
+            err = held(f"mxu2 {data} N={n} rows={rows.start}:{rows.stop}",
+                       tpw.pairwise_force_rows_mxu2(*args, **params),
+                       tpw.pairwise_force_rows_mxu2_plain(*args, **params),
+                       tpw.pairwise_force_rows_mxu2(*args, **params), rtol)
+            worst["mxu2"] = max(worst["mxu2"], err)
+        for n in (4096, 4100):
+            pos, vel, act = flock(n)
+            err = held(f"tri {data} N={n}",
+                       tpw.pairwise_force_square_mxu_tri(pos, vel, act, **params),
+                       tpw.pairwise_force_square_mxu_tri_plain(pos, vel, act, **params),
+                       tpw.pairwise_force_square_mxu_tri(pos, vel, act, **params), rtol)
+            worst["tri"] = max(worst["tri"], err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the cell kernel and the binning
+# ---------------------------------------------------------------------------
+
+
+def grid_operands(tnb, boids, pos, vel, active, config):
+    """The cell kernel's operands for a world, as ``slot_forces`` gathers
+    them, and the binning."""
+    grid, cand, padded = tnb.build_grid_tables(
+        pos, active, config, {"vx": vel[:, 0], "vy": vel[:, 1]})
+    kernel = boids.FLOCK_PAIR_KERNEL
+    rowvals = {name: padded[name][grid.slots] for name in kernel.row_names}
+    colvals = {name: padded[name][cand] for name in kernel.col_names}
+    return grid, cand, rowvals, colvals
+
+
+def check_cell_kernel(tcg, tnb, boids) -> float:
+    kernel = boids.FLOCK_PAIR_KERNEL
+    worst = 0.0
+    rng = np.random.RandomState(3)
+    clustered = [torch.from_numpy(a).cuda() for a in (
+        rng.uniform(-1.5, 1.5, size=(600, 2)).astype(np.float32),
+        rng.uniform(-0.05, 0.05, size=(600, 2)).astype(np.float32),
+        np.ones(600, np.float32))]
+    big = boids.make_world(32768, 2, device="cuda").commit()
+    worlds = {
+        "boids-32768": (big.components["position"], big.components["velocity"],
+                        big.alive.float(), boids.grid_config(32768)),
+        "clustered-600": (*clustered, boids.grid_config(600)),
+    }
+    for name, (pos, vel, act, config) in worlds.items():
+        grid, _, rowvals, colvals = grid_operands(tnb, boids, pos, vel, act, config)
+        a = tcg.cell_slot_forces(kernel, rowvals, colvals)
+        b = tcg.cell_slot_forces_plain(kernel, rowvals, colvals)
+        again = tcg.cell_slot_forces(kernel, rowvals, colvals)
+        torch.cuda.synchronize()
+        err = max((x - y).abs().max().item() for x, y in zip(a, b))
+        check(err <= CELL_ATOL, f"cell {name}: error {err}")
+        check(all(torch.equal(x, y) for x, y in zip(a, again)),
+              f"cell {name}: launch to launch")
+        check(max(x.abs().max().item() for x in b) > 1e-3, f"cell {name}: all zero")
+        worst = max(worst, err)
+        print(f"cell {name} C={config.num_cells} K={config.cell_capacity} "
+              f"M={config.padded_cols}: max_abs_err={err:.3e} (atol {CELL_ATOL}) "
+              f"repeat bitwise; spilled {int(grid.n_spilled)} dropped {int(grid.n_dropped)}")
+    pos, vel, act, config = worlds["clustered-600"]
+    feats = {"vx": vel[:, 0], "vy": vel[:, 1]}
+    grid_f, g = tnb.interact(pos, act, kernel, feats, mode="grid", config=config,
+                             impl="pallas", return_grid=True)
+    dense_f = tnb.interact(pos, act, kernel, feats, mode="dense")
+    err = (grid_f - dense_f).abs().max().item()
+    check(int(g.n_spilled) > 0 and int(g.n_dropped) == 0, "clustered grid: no spill")
+    check(err <= CELL_ATOL, f"clustered grid against dense: error {err}")
+    print(f"clustered-600 grid forces (spill {int(g.n_spilled)}) within {err:.3e} "
+          f"of dense (atol {CELL_ATOL})")
+    unnamed = tnb.PairKernel(radius=1.0, out_dim=2, n_terms=7,
+                             accumulate=kernel.accumulate, combine=kernel.combine,
+                             row_feats=("vx", "vy"), col_feats=("vx", "vy"))
+    try:
+        tcg.cell_slot_forces(unnamed, rowvals, colvals)
+    except ValueError as e:
+        print(f"a pair kernel without an instantiation is refused: {e}")
+    else:
+        check(False, "the cell kernel ran a pair kernel it has no instantiation for")
+    return worst
+
+
+def check_binning(tnb, boids) -> None:
+    rng = np.random.RandomState(4)
+    n = 32768
+    config = boids.grid_config(n)
+    big = boids.make_world(n, 2, device="cuda").commit()
+    random_active = torch.from_numpy(rng.rand(n) > 0.125)
+    worlds = {
+        "spawn spiral": (big.components["position"], big.alive),
+        "uniform, 1/8 inactive": (
+            torch.from_numpy(rng.uniform(-8, 8, size=(n, 2)).astype(np.float32)).cuda(),
+            random_active.cuda()),
+    }
+    for name, (pos, act) in worlds.items():
+        gpu = tnb.bin_entities(pos, act, config)
+        cpu = tnb.bin_entities(pos.cpu(), act.cpu(), config)
+        for field, a, b in zip(gpu._fields, gpu, cpu):
+            check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                  f"binning {name}: {field} on cuda differs from the cpu's")
+        print(f"binning {name} N={n}: cuda bitwise equal to cpu in "
+              f"{', '.join(gpu._fields)}; spilled {int(gpu.n_spilled)}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 4, 5 and 8: SyncTest sessions through GGRSPlugin
 # ---------------------------------------------------------------------------
 
 
@@ -305,7 +499,7 @@ def box_app(device):
     )
 
 
-def boids_app(n: int, device):
+def boids_app(n: int, device, schedule=None):
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import boids
 
@@ -319,7 +513,7 @@ def boids_app(n: int, device):
         .register_rollback_component("velocity", shape=(2,))
         .register_rollback_component("leader_handle", dtype=torch.int32, default=-1)
         .register_rollback_resource("frame_count", np.uint32(0))
-        .with_rollback_schedule(boids.make_schedule())
+        .with_rollback_schedule(schedule or boids.make_schedule())
         .with_num_players(2)
         .with_max_prediction_window(8)
         .with_world_capacity(n)
@@ -329,12 +523,16 @@ def boids_app(n: int, device):
     )
 
 
-def timings(label: str, kernel, plain, nbytes: int, ops: int, peak_ops: float) -> dict:
+def timings(label: str, kernel, plain, nbytes: int, ops: int = 0,
+            peak_ops: float = PEAK_F32_PER_S, tc_flops: int = 0) -> dict:
     """The kernel's and its plain version's device time per call (CUDA
     graph replay) and the least time the card could take: the larger of
-    ``nbytes`` over the memory rate and ``ops`` over ``peak_ops``. The
-    per-call time with the host's work included is printed beside them."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    ``nbytes`` over the memory rate, ``ops`` over ``peak_ops`` and
+    ``tc_flops`` over the tensor cores' bf16 rate (the two kinds of
+    operations run on separate units). The per-call time with the host's
+    work included is printed beside them."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(ops / peak_ops, tc_flops / PEAK_BF16_TC_PER_S) * 1e3
     out = {
         "ms": graph_ms(kernel),
         "plain_ms": graph_ms(plain, iters=10, replays=5),
@@ -345,8 +543,40 @@ def timings(label: str, kernel, plain, nbytes: int, ops: int, peak_ops: float) -
     print(f"{label}: kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms "
           f"(device, graph replay); per call with host work: kernel "
           f"{cuda_ms(kernel):.6f} ms, plain {cuda_ms(plain, iters=50):.6f} ms; "
-          f"bound {out['bound_ms']:.6f} ms ({out['bound_by']}: {nbytes} bytes, {ops} ops)")
+          f"bound {out['bound_ms']:.6f} ms ({out['bound_by']}: {nbytes} bytes, {ops} ops, "
+          f"{tc_flops} tensor-core flops)")
     return out
+
+
+def device_busy(app, ticks: int = 8) -> dict:
+    """Run ``ticks`` more updates of a SyncTest app under ``torch.profiler``
+    and return, per tick, the wall milliseconds (profiler on), the device's
+    busy milliseconds (the union of its kernel and copy intervals) and the
+    device milliseconds of the four costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    now = app.frame * DT
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            now += DT
+            app.update(now)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler saw no device activity")
+    busy_us, end, by_name = 0.0, float("-inf"), {}
+    for t_start, t_end, name in spans:
+        busy_us += max(0.0, t_end - max(t_start, end))
+        end = max(end, t_end)
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (t_end - t_start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_ms_per_tick": wall_ms / ticks,
+            "device_busy_ms_per_tick": busy_us / 1e3 / ticks,
+            "busy_share": busy_us / 1e3 / wall_ms,
+            "top_kernels_ms_per_tick": {k: v / 1e3 / ticks for k, v in top}}
 
 
 def reset_counts(kernels) -> None:
@@ -372,13 +602,20 @@ def main() -> int:
     from bevy_ggrs_tpu_torch.app import SessionType
     from bevy_ggrs_tpu_torch.models import boids, box_game
     from bevy_ggrs_tpu_torch.ops import _build
+    from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
     from bevy_ggrs_tpu_torch.ops import checksum as tck
+    from bevy_ggrs_tpu_torch.ops import neighbor as tnb
     from bevy_ggrs_tpu_torch.ops import pairwise as tpw
     from bevy_ggrs_tpu_torch.rollout import advance_n
-    from bevy_ggrs_tpu_torch.schedule import PlayerInputs
+    from bevy_ggrs_tpu_torch.schedule import PlayerInputs, Schedule
     from bevy_ggrs_tpu_torch.session import SyncTestSession
 
-    kernels = (tck.entity_hash_sum, tpw.pairwise_force_rows)
+    # The plain versions' f32 products run in full f32 on the card.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    force_kernels = (tpw.pairwise_force_rows, tpw.pairwise_force_rows_mxu2,
+                     tpw.pairwise_force_square_mxu_tri, tcg.cell_slot_forces)
+    kernels = (tck.entity_hash_sum,) + force_kernels
     params = boids._kernel_params()
 
     phase("1 device and build")
@@ -454,17 +691,73 @@ def main() -> int:
     print(f"boids: {frames} frames, {boids_log['advances']} advances, "
           f"{boids_log['saves']} saves, launches {boids_launches}")
 
-    phase("6 times")
+    phase("6 tensor-core force kernels against their plain versions")
+    mxu_err = check_mxu_kernels(tpw, boids, params)
+
+    phase("7 cell kernel against its plain version, and the binning")
+    cell_err = check_cell_kernel(tcg, tnb, boids)
+    check_binning(tnb, boids)
+
+    phase("8 boids SyncTests at entity scale on cuda")
+    bits = torch.tensor([[(f + h) % 16 for h in range(2)] for f in range(4)],
+                        dtype=torch.uint8)
+    plain_grid = Schedule([boids.flock_system_grid, boids.increase_frame_system])
+    scale = {}
+    for label, n, frames, mode, fn in (
+        ("boids1024_mxu", 1024, 120, "dense", tpw.pairwise_force_rows_mxu2),
+        ("boids4096_tri", 4096, 60, "dense", tpw.pairwise_force_square_mxu_tri),
+        ("boids32768_grid", 32768, 60, "grid", tcg.cell_slot_forces),
+    ):
+        # One step against the plain version (STEP_ATOL); over more steps
+        # a difference moves a boid across a radius and the flocks part.
+        schedule = boids.make_schedule(kernel="mxu", mode=mode)
+        start = boids.make_world(n, 2, device="cuda").commit()
+        a = advance_n(schedule, start, bits[:1].cuda())
+        if mode == "dense":  # the plain version on the cpu
+            b = advance_n(schedule, boids.make_world(n, 2, device="cpu").commit(), bits[:1])
+        else:  # the cell kernel's plain version on the card
+            b = advance_n(plain_grid, start, bits[:1].cuda())
+        for name in ("position", "velocity"):
+            err = (a.components[name].cpu() - b.components[name].cpu()).abs().max().item()
+            check(err <= STEP_ATOL, f"{label} {name}: kernel against plain {err}")
+        print(f"{label}: one step within {err:.3e} of the plain version (atol {STEP_ATOL}, "
+              f"{'cpu' if mode == 'dense' else 'cuda'})")
+        config = boids.grid_config(n)
+        if mode == "grid":
+            print(f"{label} grid_stats first frame: "
+                  + json.dumps(tnb.grid_stats(start.components["position"], start.alive, config)))
+        app = boids_app(n, "cuda", schedule)
+        reset_counts(kernels)
+        log, ticks = drive(app, SyncTestSession(2, boids.INPUT_SPEC, check_distance=7),
+                           SessionType.SYNC_TEST, frames)
+        launches = {k.__name__: k.launches for k in kernels}
+        state = app.stage.runner.state
+        check(torch.isfinite(state.components["position"]).all().item(), f"{label}: positions")
+        check(launches[fn.__name__] == log["advances"],
+              f"{label}: {fn.__name__} launches {launches}, {log['advances']} advances")
+        check(all(launches[k.__name__] == 0 for k in force_kernels if k is not fn),
+              f"{label}: another force kernel ran: {launches}")
+        check(launches["entity_hash_sum"] >= log["saves"], f"{label}: checksum launches")
+        if mode == "grid":
+            active = state.alive & state.present["position"]
+            print(f"{label} grid_stats last frame: "
+                  + json.dumps(tnb.grid_stats(state.components["position"], active, config)))
+        print(f"{label}: {frames} frames, {log['advances']} advances, {log['saves']} saves, "
+              f"no mismatch, launches {launches}, ticks {json.dumps(tick_stats(ticks))}")
+        scale[label] = {"app": app, "log": log, "ticks": ticks, "launches": launches}
+
+    phase("9 times")
     state = flock.stage.runner.state
     # Checksum at the main path's shape: one boids world, cap 1,024 x W 9.
     words = tck._word_matrix(state)
     alive = state.alive.reshape(1, -1).view(torch.uint8)
     B, W, cap = words.shape
+    runs = [boids_launches] + [r["launches"] for r in scale.values()]
     ck = {
         "name": "entity_hash_sum", "route": "cuda",
         "source": "bevy_ggrs_tpu_torch/csrc/checksum.cu",
         "replaces": "bevy_ggrs_tpu/ops/checksum.py:95",
-        "launches": box_launches["entity_hash_sum"] + boids_launches["entity_hash_sum"],
+        "launches": box_launches["entity_hash_sum"] + sum(r["entity_hash_sum"] for r in runs),
         "max_abs_err": 0.0,
         **timings(
             f"checksum B={B} W={W} cap={cap}",
@@ -492,25 +785,119 @@ def main() -> int:
                 ops=n_boids * n_boids * FORCE_OPS_PER_PAIR,
                 peak_ops=PEAK_F32_PER_S),
         }
-    print("library_ms: no single PyTorch call computes either function "
-          "(a murmur3 hash chain; the three boids rules), so there is none")
-    # The main path's pieces around the kernels, for the per-tick breakdown.
-    ring = flock.stage.runner.ring
+
+    def flock_operands(label):
+        s_ = scale[label]["app"].stage.runner.state
+        return (s_.components["position"], s_.components["velocity"],
+                (s_.alive & s_.present["position"]).float())
+
+    pos, vel, act = flock_operands("boids1024_mxu")
+    n_boids = pos.shape[0]
+    args = (pos, vel, pos, vel, act, act)
+    mxu2 = {
+        "name": "pairwise_force_rows_mxu2", "route": "cuda",
+        "source": "bevy_ggrs_tpu_torch/csrc/pairwise_mxu.cu",
+        "replaces": "bevy_ggrs_tpu/ops/pairwise.py:478",
+        "launches": scale["boids1024_mxu"]["launches"]["pairwise_force_rows_mxu2"],
+        "max_abs_err": mxu_err["mxu2"],
+        **timings(
+            f"mxu2 R=N={n_boids}",
+            lambda: tpw.pairwise_force_rows_mxu2(*args, **params),
+            lambda: tpw.pairwise_force_rows_mxu2_plain(*args, **params),
+            nbytes=n_boids * 5 * 4 * 2 + n_boids * 2 * 4,
+            ops=n_boids * n_boids * MXU_MASK_OPS_PER_PAIR,
+            tc_flops=n_boids * n_boids * MXU_TC_FLOPS_PER_PAIR),
+    }
+    tri_pos, tri_vel, tri_act = flock_operands("boids4096_tri")
+    n_boids = tri_pos.shape[0]
+    tri = {
+        "name": "pairwise_force_square_mxu_tri", "route": "cuda",
+        "source": "bevy_ggrs_tpu_torch/csrc/pairwise_tri.cu",
+        "replaces": "bevy_ggrs_tpu/ops/pairwise.py:673",
+        "launches": scale["boids4096_tri"]["launches"]["pairwise_force_square_mxu_tri"],
+        "max_abs_err": mxu_err["tri"],
+        **timings(
+            f"tri N={n_boids}",
+            lambda: tpw.pairwise_force_square_mxu_tri(tri_pos, tri_vel, tri_act, **params),
+            lambda: tpw.pairwise_force_square_mxu_tri_plain(tri_pos, tri_vel, tri_act, **params),
+            nbytes=n_boids * 5 * 4 + n_boids * 2 * 4,
+            # masks once per unordered pair; products for every ordered pair
+            ops=n_boids * (n_boids + 1) // 2 * MXU_MASK_OPS_PER_PAIR,
+            tc_flops=n_boids * n_boids * MXU_TC_FLOPS_PER_PAIR),
+    }
+    g_pos, g_vel, g_act = flock_operands("boids32768_grid")
+    n_boids = g_pos.shape[0]
+    config = boids.grid_config(n_boids)
+    grid, cand, rowvals, colvals = grid_operands(tnb, boids, g_pos, g_vel, g_act, config)
+    fk = boids.FLOCK_PAIR_KERNEL
+    C, K, M = config.num_cells, config.cell_capacity, config.padded_cols
+    # The pairs this run's data needs: occupied slots against real candidates.
+    pairs = int(((grid.slots < n_boids).sum(1) * (cand < n_boids).sum(1)).sum())
+    print(f"cell kernel C={C} K={K} M={M}: {C * K * M} slot-candidate pairs computed, "
+          f"{pairs} between real entities")
+    cell = {
+        "name": "cell_slot_forces", "route": "cuda",
+        "source": "bevy_ggrs_tpu_torch/csrc/cell_gather.cu",
+        "replaces": "bevy_ggrs_tpu/ops/cell_gather.py:114",
+        "launches": scale["boids32768_grid"]["launches"]["cell_slot_forces"],
+        "max_abs_err": cell_err,
+        **timings(
+            f"cell C={C} K={K} M={M}",
+            lambda: tcg.cell_slot_forces(fk, rowvals, colvals),
+            lambda: tcg.cell_slot_forces_plain(fk, rowvals, colvals),
+            nbytes=(len(fk.row_names) * C * K + len(fk.col_names) * C * M
+                    + fk.out_dim * C * K) * 4,
+            ops=pairs * FORCE_OPS_PER_PAIR),
+    }
+    print("library_ms: no single PyTorch call computes any of these functions "
+          "(a murmur3 hash chain; the three boids rules, dense or per cell), "
+          "so there is none")
+    # The main path's pieces around the kernels, for the per-tick breakdowns.
     step_bits = torch.zeros((2,), dtype=torch.uint8, device="cuda")
     step_status = torch.zeros((2,), dtype=torch.int32, device="cuda")
     inputs = PlayerInputs(step_bits, step_status)
-    schedule = boids.make_schedule()
-    pieces = {
-        "boids_checksum_ms": cuda_ms(lambda: tck.checksum(state), iters=50),
-        "boids_ring_save_ms": cuda_ms(lambda: ts.ring_save(ring, state, 0), iters=50),
-        "boids_ring_load_ms": cuda_ms(lambda: ts.ring_load(ring, 0), iters=50),
-        "boids_step_ms": cuda_ms(lambda: schedule(state, inputs), iters=50),
-    }
+    pieces = {}
+    for label, app, schedule in (
+        ("boids1024", flock, boids.make_schedule()),
+        ("boids1024_mxu", scale["boids1024_mxu"]["app"], boids.make_schedule(kernel="mxu")),
+        ("boids4096_tri", scale["boids4096_tri"]["app"], boids.make_schedule(kernel="mxu")),
+        ("boids32768_grid", scale["boids32768_grid"]["app"],
+         boids.make_schedule(kernel="mxu", mode="grid")),
+    ):
+        s_, ring = app.stage.runner.state, app.stage.runner.ring
+        iters = 20 if label == "boids32768_grid" else 50
+        pieces[f"{label}_checksum_ms"] = cuda_ms(lambda: tck.checksum(s_), iters=iters)
+        pieces[f"{label}_ring_save_ms"] = cuda_ms(lambda: ts.ring_save(ring, s_, 0), iters=iters)
+        pieces[f"{label}_ring_load_ms"] = cuda_ms(lambda: ts.ring_load(ring, 0), iters=iters)
+        pieces[f"{label}_step_ms"] = cuda_ms(lambda: schedule(s_, inputs), iters=iters)
+    # The grid step's own pieces.
+    feats = {"vx": g_vel[:, 0], "vy": g_vel[:, 1]}
+    tables = tnb.build_grid_tables(g_pos, g_act, config, feats)
+    slot_f = tnb.slot_forces(fk, tables[0].slots, tables[1], tables[2], impl="pallas")
+    spill_f = tnb.spill_forces(fk, tables[0].spill, tables[2])
+    pieces.update({
+        "grid_bin_and_tables_ms": cuda_ms(
+            lambda: tnb.build_grid_tables(g_pos, g_act, config, feats), iters=20),
+        "grid_slot_forces_ms": cuda_ms(
+            lambda: tnb.slot_forces(fk, tables[0].slots, tables[1], tables[2], impl="pallas"),
+            iters=20),
+        "grid_spill_forces_ms": cuda_ms(
+            lambda: tnb.spill_forces(fk, tables[0].spill, tables[2]), iters=20),
+        "grid_scatter_ms": cuda_ms(
+            lambda: tnb.scatter_forces(n_boids, tables[0].slots, tables[0].spill,
+                                       slot_f, spill_f), iters=20),
+    })
     print("pieces " + json.dumps(pieces))
+    # Device busy time per tick under the profiler, after each run's counts
+    # were read.
+    busy = {"boids1024_synctest": device_busy(flock)}
+    busy.update({f"{label}_synctest": device_busy(r["app"]) for label, r in scale.items()})
+    print("busy " + json.dumps(busy))
     ticks = {"box_game_synctest": tick_stats(box_ticks),
              "boids1024_synctest": tick_stats(boids_ticks)}
+    ticks.update({f"{label}_synctest": tick_stats(r["ticks"]) for label, r in scale.items()})
     print("ticks " + json.dumps(ticks))
-    print(json.dumps({"kernels": [ck, forces[1024]]}))
+    print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

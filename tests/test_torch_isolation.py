@@ -16,6 +16,7 @@ from bevy_ggrs_tpu_torch import state as ts
 from bevy_ggrs_tpu_torch.app import GGRSPlugin
 from bevy_ggrs_tpu_torch.models import boids as tboids
 from bevy_ggrs_tpu_torch.models import box_game as tbox
+from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
 from bevy_ggrs_tpu_torch.ops import checksum as tck
 from bevy_ggrs_tpu_torch.ops import pairwise as tpw
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
@@ -102,6 +103,15 @@ def test_wrappers_launch_or_raise_off_the_cpu():
         tck.entity_hash_sum(words, alive)
     pos = torch.zeros((8, 2), device="meta")
     act = torch.zeros((8,), device="meta")
+    params = tboids._kernel_params()
     with pytest.raises(ValueError, match="no kernel"):
-        tpw.pairwise_force_rows(pos, pos, pos, pos, act, act,
-                                **tboids._kernel_params())
+        tpw.pairwise_force_rows(pos, pos, pos, pos, act, act, **params)
+    with pytest.raises(ValueError, match="no kernel"):
+        tpw.pairwise_force_rows_mxu2(pos, pos, pos, pos, act, act, **params)
+    with pytest.raises(ValueError, match="no kernel"):
+        tpw.pairwise_force_square_mxu_tri(pos, pos, act, **params)
+    kernel = tboids.FLOCK_PAIR_KERNEL
+    rows = {name: torch.zeros((4, 16), device="meta") for name in kernel.row_names}
+    cols = {name: torch.zeros((4, 160), device="meta") for name in kernel.col_names}
+    with pytest.raises(ValueError, match="no kernel"):
+        tcg.cell_slot_forces(kernel, rows, cols)
