@@ -16,25 +16,46 @@
 // column features px, py, active, vx, vy.
 //
 // What bounds it on an H100: operations. Each slot-candidate pair costs
-// about 30 f32 operations and one rsqrt; at the boids-32,768 grid (256
-// cells x 256 slots x 2,816 candidates) that is 184.5 M pairs a call,
-// most of them against empty slots, against 14 MB of gathered inputs.
+// about 30 f32 operations and one rsqrt. At the boids-32,768 grid (256
+// cells x 256 slots x 2,816 candidates) the tables hold 184.5 M pairs a
+// call, but only 37.8 M of them are between live entities: the spawn
+// spiral fills about half of each cell's slots and no entity spills, so
+// most rows and most candidates are sentinels. Bytes (16 MB gathered) are
+// far below the operations' time.
 //
-// Design: one block per cell and one thread per slot row, its n_terms
-// sums in registers. Candidate tiles of all column features are staged
-// in shared memory and walked in order, every thread reading the same
-// candidate at once (a broadcast). The combine runs at the end. Each sum
-// runs over the candidates in one fixed order and nothing is summed with
-// atomics, so launches on the same inputs are bitwise equal. d2 is never
-// contracted into an FMA: the membership masks then see the same float
-// d2 as the plain version and JAX, and borderline pairs classify alike.
+// Design: the work follows the live pairs. One block per cell. The block
+// compacts the indices of its live rows (a chunk of up to kThreads slots
+// at a time) and, tile by tile, of its live candidates into shared memory
+// in ascending order (__ballot_sync and a __popc prefix per warp, then the
+// warp offsets), stages only those candidates' features, padded to whole
+// float4s so a thread reads a candidate in two vector loads, and walks
+// them. A pair kernel chooses what it skips: FlockPair skips inactive rows
+// and candidates, whose terms are all +0 or -0 (see there). Each live row gets
+// S = kThreads / W threads, W its live-row count rounded up to a warp:
+// thread (s, row) walks the s-th contiguous range of each tile's compacted
+// list, so every warp reads one candidate at a time (a broadcast), and
+// the S partial sums are added in ascending s in shared memory before the
+// combine. Every sum runs in one order fixed by the inputs and nothing is
+// summed with atomics, so launches on the same inputs are bitwise equal.
+// d2 is never contracted into an FMA: the membership masks then see the
+// same float d2 as the plain version and JAX, and borderline pairs
+// classify alike.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 512;        // candidates staged per shared-memory tile
-constexpr int kMaxThreads = 512;  // slot rows per pass of a block
+constexpr int kThreads = 512;  // threads a block; also the rows per chunk
+constexpr int kTile = 1024;    // candidates examined per shared-memory tile
+
+// rsqrtf for an argument known to be a normal float: the same hardware
+// approximation without rsqrtf's scaling of subnormal arguments, so the
+// same bits in three instructions fewer.
+__device__ inline float rsqrt_normal(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // boids' FLOCK_PAIR_KERNEL. Row and column features, in PairKernel's
 // row_names / col_names order: px, py, active, vx, vy.
@@ -43,6 +64,15 @@ struct FlockPair {
   static constexpr int kColFeats = 5;
   static constexpr int kTerms = 7;
   static constexpr int kOut = 2;
+  static constexpr int kActive = 2;  // index of active in both feature lists
+  // Every term below is multiplied by neigh, which holds row.active *
+  // col.active, and the sums start at +0. An inactive candidate therefore
+  // adds +0 or -0 to each sum, which leaves the sum's bits unchanged:
+  // skipping it, in order, gives the sums of the full walk. An inactive
+  // row's outputs are zero (combine's final * row.active), and the
+  // scatter drops sentinel rows.
+  static constexpr bool kSkipInactiveCols = true;
+  static constexpr bool kSkipInactiveRows = true;
   float nr2, sr2, ws, wa, wc;
 
   __device__ void accumulate(const float* row, const float* col,
@@ -53,7 +83,7 @@ struct FlockPair {
     const float both = row[2] * col[2];
     const float is_self = d2 < 1e-10f ? 1.f : 0.f;
     const float neigh = both * (d2 < nr2 ? 1.f : 0.f) * (1.f - is_self);
-    const float inv_d = rsqrtf(fmaxf(d2, 1e-12f));
+    const float inv_d = rsqrt_normal(fmaxf(d2, 1e-12f));
     const float close = neigh * (d2 < sr2 ? 1.f : 0.f);
     const float w = inv_d * close;
     acc[0] += neigh;
@@ -79,46 +109,135 @@ struct FlockPair {
   }
 };
 
+// The indices i in [0, n) with keep(i), in ascending order, into idx;
+// returns their count. Every thread of the block calls it.
+template <class Keep>
+__device__ int compact(int n, Keep keep, short* idx, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const bool k = i < n && keep(i);
+    const unsigned mask = __ballot_sync(0xffffffffu, k);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int before = 0, chunk = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      before += w < warp ? s_warp[w] : 0;
+      chunk += s_warp[w];
+    }
+    if (k) idx[total + before + __popc(mask & ((1u << lane) - 1u))] = (short)i;
+    total += chunk;
+    __syncthreads();  // s_warp is read before the next chunk writes it
+  }
+  return total;
+}
+
 // rows: f32 [kRowFeats, C, K]; cols: f32 [kColFeats, C, M];
 // out: f32 [kOut, C, K].
 template <class P>
-__global__ void cell_slot_forces_kernel(const float* __restrict__ rows,
-                                        const float* __restrict__ cols,
-                                        float* __restrict__ out, int C, int K,
-                                        int M, P pair) {
-  __shared__ float s_col[P::kColFeats][kTile];
+__global__ void __launch_bounds__(kThreads, 2) cell_slot_forces_kernel(
+    const float* __restrict__ rows, const float* __restrict__ cols,
+    float* __restrict__ out, int C, int K, int M, P pair) {
+  // A staged candidate's features, padded to whole float4s so that a
+  // thread reads them in kColVec vector loads; the row partials reuse the
+  // same shared memory once the last tile is walked.
+  constexpr int kColVec = (P::kColFeats + 3) / 4;
+  constexpr int kTileBytes = kTile * kColVec * 16;
+  constexpr int kPartBytes = P::kTerms * kThreads * 4;
+  __shared__ __align__(16) unsigned char s_buf[kTileBytes > kPartBytes ? kTileBytes : kPartBytes];
+  __shared__ short s_cand[kTile];
+  __shared__ short s_rows[kThreads];
+  __shared__ int s_warp[kThreads / 32];
+  auto* s_col = reinterpret_cast<float4*>(s_buf);         // [kTile][kColVec]
+  auto* s_part = reinterpret_cast<float(*)[kThreads]>(s_buf);  // [kTerms][kThreads]
   const long cell = blockIdx.x;
-  for (int r0 = 0; r0 < K; r0 += blockDim.x) {
-    const int r = r0 + threadIdx.x;
-    const bool has_row = r < K;
+  const float* row_base = rows + cell * K;
+  const float* col_base = cols + cell * M;
+  const long row_stride = (long)C * K, col_stride = (long)C * M;
+
+  for (int r0 = 0; r0 < K; r0 += kThreads) {
+    const int n_rows = min(kThreads, K - r0);
+    const int live = compact(
+        n_rows,
+        [&](int i) {
+          return !P::kSkipInactiveRows ||
+                 row_base[P::kActive * row_stride + r0 + i] != 0.f;
+        },
+        s_rows, s_warp);
+    // A skipped row writes zeros.
+    if (P::kSkipInactiveRows && threadIdx.x < n_rows &&
+        row_base[P::kActive * row_stride + r0 + threadIdx.x] == 0.f) {
+#pragma unroll
+      for (int f = 0; f < P::kOut; ++f)
+        out[f * row_stride + cell * K + r0 + threadIdx.x] = 0.f;
+    }
+    if (live == 0) continue;
+
+    // Thread t is split s = t / W of live row t % W; warps never straddle
+    // two splits, since W is a whole number of warps.
+    const int W = (live + 31) / 32 * 32;
+    const int S = kThreads / W;
+    const int s = threadIdx.x / W, lr = threadIdx.x % W;
+    const bool walks = s < S && lr < live;
     float row[P::kRowFeats], acc[P::kTerms];
 #pragma unroll
-    for (int f = 0; f < P::kRowFeats; ++f)
-      row[f] = has_row ? rows[(f * C + cell) * K + r] : 0.f;
+    for (int f = 0; f < P::kRowFeats; ++f) row[f] = 0.f;
+    if (walks) {
+#pragma unroll
+      for (int f = 0; f < P::kRowFeats; ++f)
+        row[f] = row_base[f * row_stride + r0 + s_rows[lr]];
+    }
 #pragma unroll
     for (int t = 0; t < P::kTerms; ++t) acc[t] = 0.f;
+
     for (int base = 0; base < M; base += kTile) {
       const int cnt = min(kTile, M - base);
-      __syncthreads();  // the previous tile is consumed
-      for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+      const int n = compact(
+          cnt,
+          [&](int j) {
+            return !P::kSkipInactiveCols ||
+                   col_base[P::kActive * col_stride + base + j] != 0.f;
+          },
+          s_cand, s_warp);
+      for (int j = threadIdx.x; j < n; j += kThreads) {
+        const int src = base + s_cand[j];
+        float* dst = reinterpret_cast<float*>(s_col + j * kColVec);
 #pragma unroll
         for (int f = 0; f < P::kColFeats; ++f)
-          s_col[f][j] = cols[(f * C + cell) * M + base + j];
+          dst[f] = col_base[f * col_stride + src];
       }
       __syncthreads();
-      for (int j = 0; j < cnt; ++j) {
-        float col[P::kColFeats];
+      if (walks) {
+        const int j1 = (int)((long)n * (s + 1) / S);
+        for (int j = (int)((long)n * s / S); j < j1; ++j) {
+          float col[kColVec * 4];
 #pragma unroll
-        for (int f = 0; f < P::kColFeats; ++f) col[f] = s_col[f][j];
-        pair.accumulate(row, col, acc);
+          for (int v = 0; v < kColVec; ++v)
+            reinterpret_cast<float4*>(col)[v] = s_col[j * kColVec + v];
+          pair.accumulate(row, col, acc);
+        }
       }
+      __syncthreads();  // the tile is consumed before the next is staged
     }
-    if (has_row) {
+
+    if (walks) {
+#pragma unroll
+      for (int t = 0; t < P::kTerms; ++t) s_part[t][threadIdx.x] = acc[t];
+    }
+    __syncthreads();
+    if (walks && s == 0) {
+#pragma unroll
+      for (int t = 0; t < P::kTerms; ++t) {
+        for (int q = 1; q < S; ++q) acc[t] += s_part[t][q * W + lr];
+      }
       float o[P::kOut];
       pair.combine(acc, row, o);
 #pragma unroll
-      for (int f = 0; f < P::kOut; ++f) out[(f * C + cell) * K + r] = o[f];
+      for (int f = 0; f < P::kOut; ++f)
+        out[f * row_stride + cell * K + r0 + s_rows[lr]] = o[f];
     }
+    __syncthreads();  // s_rows and s_part are read before the next chunk
   }
 }
 
@@ -128,10 +247,8 @@ extern "C" int ggrs_cell_slot_forces_flock(const void* rows, const void* cols,
                                            void* out, int C, int K, int M,
                                            float nr2, float sr2, float ws,
                                            float wa, float wc, void* stream) {
-  const int rounded = (K + 31) / 32 * 32;
-  const int threads = rounded < kMaxThreads ? rounded : kMaxThreads;
   const FlockPair pair{nr2, sr2, ws, wa, wc};
-  cell_slot_forces_kernel<FlockPair><<<C, threads, 0, (cudaStream_t)stream>>>(
+  cell_slot_forces_kernel<FlockPair><<<C, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)rows, (const float*)cols, (float*)out, C, K, M, pair);
   return (int)cudaGetLastError();
 }

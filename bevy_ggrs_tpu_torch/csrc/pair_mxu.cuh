@@ -1,7 +1,8 @@
 // Shared pieces of the two tensor-core boids force kernels
 // (pairwise_mxu.cu and pairwise_tri.cu): the pair-mask tile, the feature
-// tiles, and the combine. Counterparts of _pair_masks, _lane_feats' tiles,
-// _acc_sums and _combine_forces in bevy_ggrs_tpu/ops/pairwise.py.
+// tiles (loaded from prebuilt stacks, or built from the boids), and the
+// combine. Counterparts of _pair_masks, _lane_feats' tiles, _acc_sums and
+// _combine_forces in bevy_ggrs_tpu/ops/pairwise.py.
 //
 // A tile pairs kTile row boids with kTile column boids. Its three pair
 // matrices (the 0/1 neighbour mask and the hi/lo halves of the separation
@@ -47,6 +48,49 @@ __device__ inline void load_features(const __nv_bfloat16* __restrict__ feat,
     const bool in = col < N;
     s_feat[f * kLd + c] = (f < kFeat && in) ? feat[f * N + col] : zero;
     s_sep[f * kLd + c] = (f < kSep && in) ? sep[f * N + col] : zero;
+  }
+}
+
+// Stage columns [base, base + kTile) of the boids, building the feature
+// tiles from them as _lane_feats and _hi_lo do: positions into s_cpx and
+// s_cpy; act, act*px, act*py, act*vx, act*vy in f32, each split into
+// hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest even. s_feat
+// holds the five hi rows then the five lo rows, s_sep the hi then the lo
+// rows of the first three; the rows past them and columns at or past N
+// are zero.
+__device__ inline void build_features(const float2* __restrict__ pos,
+                                      const float2* __restrict__ vel,
+                                      const float* __restrict__ active, int N,
+                                      int base, float* s_cpx, float* s_cpy,
+                                      __nv_bfloat16* s_feat,
+                                      __nv_bfloat16* s_sep) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int c = threadIdx.x; c < kTile; c += blockDim.x) {
+    const int j = base + c;
+    const bool in = j < N;
+    const float2 p = in ? pos[j] : make_float2(0.f, 0.f);
+    const float2 v = in ? vel[j] : make_float2(0.f, 0.f);
+    const float a = in ? active[j] : 0.f;
+    s_cpx[c] = p.x;
+    s_cpy[c] = p.y;
+    const float x[5] = {a, __fmul_rn(a, p.x), __fmul_rn(a, p.y),
+                        __fmul_rn(a, v.x), __fmul_rn(a, v.y)};
+#pragma unroll
+    for (int f = 0; f < 5; ++f) {
+      const __nv_bfloat16 hi = __float2bfloat16_rn(x[f]);
+      const __nv_bfloat16 lo =
+          __float2bfloat16_rn(__fsub_rn(x[f], __bfloat162float(hi)));
+      s_feat[f * kLd + c] = hi;
+      s_feat[(5 + f) * kLd + c] = lo;
+      if (f < 3) {
+        s_sep[f * kLd + c] = hi;
+        s_sep[(3 + f) * kLd + c] = lo;
+      }
+    }
+#pragma unroll
+    for (int f = kFeat; f < 16; ++f) s_feat[f * kLd + c] = zero;
+#pragma unroll
+    for (int f = kSep; f < 16; ++f) s_sep[f * kLd + c] = zero;
   }
 }
 

@@ -9,10 +9,12 @@ template with one instantiation per pair kernel, found through the
 PyTorch version, taken for CPU tensors and by ``neighbor.slot_forces``'s
 ``impl="xla"`` on any device.
 
-The kernel sums each row's candidates in one fixed order without atomics,
-so it is bitwise equal to itself from launch to launch; against its plain
-version and the JAX paths it is allclose (another summation order, and
-CUDA's ``rsqrtf``).
+The kernel walks only the live pairs: a pair kernel's instantiation may
+skip inactive rows and candidates whose terms are all ±0 (boids' does).
+It sums each row's candidates in one order fixed by the inputs without
+atomics, so it is bitwise equal to itself from launch to launch; against
+its plain version and the JAX paths it is allclose (another summation
+order, and CUDA's ``rsqrtf``).
 """
 
 from __future__ import annotations

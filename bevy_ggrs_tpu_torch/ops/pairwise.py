@@ -287,7 +287,35 @@ def _launch_params(neighbor_radius, separation_radius, w_separation,
             float(np.float32(w_cohesion)))
 
 
-_MXU_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+MXU_TILE = 64  # the tensor-core kernels' tile edge (csrc/pair_mxu.cuh kTile)
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable thread-block cluster limit
+
+
+def mxu2_launch_shape(r: int, n: int) -> Tuple[int, int]:
+    """``(P, row_blocks)`` of the general tensor-core kernel for ``r`` rows
+    and ``n`` columns: each 64-row block's column tiles are split over a
+    cluster of ``P`` blocks, and the grid is ``row_blocks * P`` blocks.
+    ``P`` doubles from 1 while ``row_blocks * P`` is short of the SMs and
+    every block of the cluster still gets a column tile."""
+    row_blocks = -(-r // MXU_TILE)
+    tiles = -(-n // MXU_TILE)
+    p = _CLUSTER_SIZES[0]
+    for bigger in _CLUSTER_SIZES[1:]:
+        if row_blocks * p >= _SMS or bigger > tiles:
+            break
+        p = bigger
+    return p, row_blocks
+
+
+def mxu2_tile_ranges(n: int, p: int) -> Tuple[Tuple[int, int], ...]:
+    """The column tiles ``[start, end)`` that each block rank of a cluster
+    of ``p`` walks, as ``csrc/pairwise_mxu.cu`` splits them."""
+    tiles = -(-n // MXU_TILE)
+    return tuple((q * tiles // p, (q + 1) * tiles // p) for q in range(p))
+
+
+_MXU_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                  + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
@@ -305,9 +333,10 @@ def pairwise_force_rows_mxu2(
     :func:`pairwise_force_rows`.
 
     A CPU tensor takes :func:`pairwise_force_rows_mxu2_plain`; a CUDA
-    tensor launches ``csrc/pairwise_mxu.cu`` on the current stream, with
-    the feature stacks built here in PyTorch, and anything it cannot take
-    raises."""
+    tensor launches ``csrc/pairwise_mxu.cu`` once on the current stream, as
+    clusters of :func:`mxu2_launch_shape`, and the kernel builds the
+    feature stacks itself. Anything it cannot take, and a cluster launch
+    the card refuses, raises."""
     R, N = row_pos.shape[0], all_pos.shape[0]
     device = _check_inputs(
         row_pos=(row_pos, (R, 2)), row_vel=(row_vel, (R, 2)),
@@ -317,15 +346,15 @@ def pairwise_force_rows_mxu2(
         return pairwise_force_rows_mxu2_plain(
             row_pos, row_vel, all_pos, all_vel, row_active, all_active,
             **params)
-    feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
+    p, _ = mxu2_launch_shape(R, N)
     out = torch.empty((R, 2), dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
                          _MXU_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
-                 all_pos.data_ptr(), feat_t.data_ptr(), sep_t.data_ptr(),
-                 out.data_ptr(), R, N, *_launch_params(**params), stream)
+                 all_pos.data_ptr(), all_vel.data_ptr(), all_active.data_ptr(),
+                 out.data_ptr(), R, N, p, *_launch_params(**params), stream)
     _build.check(err, "pairwise_force_rows_mxu2")
     pairwise_force_rows_mxu2.launches += 1
     return out
@@ -333,7 +362,6 @@ def pairwise_force_rows_mxu2(
 
 pairwise_force_rows_mxu2.launches = 0
 
-TRI_TILE = 64  # the triangle kernel's tile edge (csrc/pair_mxu.cuh kTile)
 _TRI_PARTS = 16  # accumulator rows kept per boid and tile side
 
 _TRI_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
@@ -343,8 +371,8 @@ _TRI_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
 def tri_scratch_shape(n: int) -> Tuple[int, int, int]:
     """Shape of each of the triangle kernel's two partial-sum buffers: one
     ``[16, 64]`` block per upper-triangle tile."""
-    nb = -(-n // TRI_TILE)
-    return nb * (nb + 1) // 2, _TRI_PARTS, TRI_TILE
+    nb = -(-n // MXU_TILE)
+    return nb * (nb + 1) // 2, _TRI_PARTS, MXU_TILE
 
 
 def pairwise_force_square_mxu_tri(

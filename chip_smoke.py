@@ -23,14 +23,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    first frames agree with the plain CPU path within ``atol=1e-5``.
 6. Tensor-core force kernels against their plain versions on the card,
    on spawn-spiral flocks with every 7th boid inactive: the general kernel
-   at N = 1,024, 1,000 and rows 256..512 of 1,024, the triangle at
-   N = 4,096 and 4,100, within ``1e-4`` of the largest force; and on
-   uniform random flocks, whose near-coincident pairs amplify the hi/lo
-   rounding, within ``1e-3`` of it. A second launch is bitwise equal to
-   the first.
+   at (R, N) = (1,024, 1,024), (1,000, 1,000), rows 256..512 of 1,024,
+   (1, 1,024), (65, 1,000), (1,024, 64), (1,024, 65), (1,024, 4,100) and
+   (4,096, 4,096), which take clusters of 1 to 8 blocks, ragged row blocks
+   and a ragged last column tile; the triangle at N = 4,096 and 4,100;
+   within ``1e-4`` of the largest force; and on uniform random flocks,
+   whose near-coincident pairs amplify the hi/lo rounding, within ``1e-3``
+   of it. A second launch is bitwise equal to the first.
 7. Cell kernel against its plain version on the card, on the
-   boids-32,768 grid tables and on a clustered 600-boid grid that spills,
-   within ``atol=1e-5``, bitwise from launch to launch; the clustered
+   boids-32,768 grid tables, on a clustered 600-boid grid that spills, and
+   on random cells with half of the rows and candidates inactive inside
+   their lists, one cell without a live candidate and one without a live
+   row, within ``atol=1e-5``, bitwise from launch to launch, with the
+   pairs computed (live rows times live candidates) printed; the clustered
    grid's forces within ``1e-5`` of the dense f32 forces; a pair kernel
    without an instantiation is refused. Binning on ``cuda`` is bitwise
    equal to binning on the CPU at 32,768 boids.
@@ -307,18 +312,35 @@ def held(name: str, a, b, again, rtol: float) -> float:
     return err
 
 
+# The general kernel's cases: (boids in the flock, its row boids, its first
+# N boids as the columns). Beside the main path's square case they cover a
+# single row, ragged row blocks, fewer columns than rows, one column tile
+# and two (clusters of 1 and 2 blocks), a ragged last tile with a tile
+# count that the cluster size does not divide (N = 4,100: 65 tiles over 8
+# blocks) and a cluster of 4 (4,096).
+MXU2_CASES = (
+    (1024, slice(0, 1024), 1024), (1000, slice(0, 1000), 1000),
+    (1024, slice(256, 512), 1024), (1024, slice(1, 2), 1024),
+    (1000, slice(0, 65), 1000), (1024, slice(0, 1024), 64),
+    (1024, slice(0, 1024), 65), (4100, slice(0, 1024), 4100),
+    (4096, slice(0, 4096), 4096),
+)
+
+
 def check_mxu_kernels(tpw, boids, params) -> dict:
     worst = {"mxu2": 0.0, "tri": 0.0}
     for data, rtol in (("spiral", MXU_RTOL), ("random", MXU_RANDOM_RTOL)):
         def flock(n):
             return spiral_flock(boids, n) if data == "spiral" else flock_inputs(n, seed=n)
 
-        for n, rows in ((1024, slice(0, 1024)), (1000, slice(0, 1000)),
-                        (1024, slice(256, 512))):
+        for n, rows, n_cols in MXU2_CASES:
             pos, vel, act = flock(n)
-            args = (pos[rows].contiguous(), vel[rows].contiguous(), pos, vel,
-                    act[rows].contiguous(), act)
-            err = held(f"mxu2 {data} N={n} rows={rows.start}:{rows.stop}",
+            args = (pos[rows].contiguous(), vel[rows].contiguous(),
+                    pos[:n_cols].contiguous(), vel[:n_cols].contiguous(),
+                    act[rows].contiguous(), act[:n_cols].contiguous())
+            p, row_blocks = tpw.mxu2_launch_shape(args[0].shape[0], n_cols)
+            err = held(f"mxu2 {data} R={args[0].shape[0]} (rows {rows.start}:{rows.stop}) "
+                       f"N={n_cols} cluster {p} x {row_blocks} row blocks",
                        tpw.pairwise_force_rows_mxu2(*args, **params),
                        tpw.pairwise_force_rows_mxu2_plain(*args, **params),
                        tpw.pairwise_force_rows_mxu2(*args, **params), rtol)
@@ -349,6 +371,35 @@ def grid_operands(tnb, boids, pos, vel, active, config):
     return grid, cand, rowvals, colvals
 
 
+def live_pairs(rowvals, colvals) -> int:
+    """The pairs the cell kernel computes: live rows times live candidates,
+    summed over the cells."""
+    rows = (rowvals["active"] != 0).sum(1)
+    cols = (colvals["active"] != 0).sum(1)
+    return int((rows * cols).sum())
+
+
+def scattered_cells(seed: int):
+    """Eight cells of the boids-32,768 grid's shape (K = 256, M = 2,816) and
+    density (about 128 live rows and 1,400 live candidates a cell, over
+    3 x 3 units), but with half of the rows and candidates inactive at
+    random places in their lists; cell 3 has no live candidate and cell 5
+    no live row."""
+    rng = np.random.RandomState(seed)
+    cells, k, m = 8, 256, 2816
+
+    def feats(n):
+        f = {"px": rng.uniform(-1.5, 1.5, (cells, n)), "py": rng.uniform(-1.5, 1.5, (cells, n)),
+             "active": rng.rand(cells, n) < 0.5,
+             "vx": rng.uniform(-0.05, 0.05, (cells, n)), "vy": rng.uniform(-0.05, 0.05, (cells, n))}
+        return {name: torch.from_numpy(v.astype(np.float32)).cuda() for name, v in f.items()}
+
+    rowvals, colvals = feats(k), feats(m)
+    colvals["active"][3] = 0.0
+    rowvals["active"][5] = 0.0
+    return rowvals, colvals
+
+
 def check_cell_kernel(tcg, tnb, boids) -> float:
     kernel = boids.FLOCK_PAIR_KERNEL
     worst = 0.0
@@ -363,8 +414,18 @@ def check_cell_kernel(tcg, tnb, boids) -> float:
                         big.alive.float(), boids.grid_config(32768)),
         "clustered-600": (*clustered, boids.grid_config(600)),
     }
+    operands = {}
     for name, (pos, vel, act, config) in worlds.items():
         grid, _, rowvals, colvals = grid_operands(tnb, boids, pos, vel, act, config)
+        operands[name] = (rowvals, colvals,
+                          f"C={config.num_cells} K={config.cell_capacity} M={config.padded_cols} "
+                          f"spilled {int(grid.n_spilled)} dropped {int(grid.n_dropped)}")
+    for seed in (5, 6):
+        rowvals, colvals = scattered_cells(seed)
+        operands[f"scattered-{seed}"] = (
+            rowvals, colvals, "C=8 K=256 M=2816, half inactive inside the lists, "
+            "cell 3 without live candidates, cell 5 without live rows")
+    for name, (rowvals, colvals, about) in operands.items():
         a = tcg.cell_slot_forces(kernel, rowvals, colvals)
         b = tcg.cell_slot_forces_plain(kernel, rowvals, colvals)
         again = tcg.cell_slot_forces(kernel, rowvals, colvals)
@@ -374,10 +435,13 @@ def check_cell_kernel(tcg, tnb, boids) -> float:
         check(all(torch.equal(x, y) for x, y in zip(a, again)),
               f"cell {name}: launch to launch")
         check(max(x.abs().max().item() for x in b) > 1e-3, f"cell {name}: all zero")
+        if name.startswith("scattered"):
+            check(all(x[5].abs().max().item() == 0 for x in a), f"cell {name}: dead cell 5")
         worst = max(worst, err)
-        print(f"cell {name} C={config.num_cells} K={config.cell_capacity} "
-              f"M={config.padded_cols}: max_abs_err={err:.3e} (atol {CELL_ATOL}) "
-              f"repeat bitwise; spilled {int(grid.n_spilled)} dropped {int(grid.n_dropped)}")
+        c, k = rowvals["px"].shape
+        print(f"cell {name} {about}: max_abs_err={err:.3e} (atol {CELL_ATOL}) repeat "
+              f"bitwise; pairs computed {live_pairs(rowvals, colvals)} of "
+              f"{c * k * colvals['px'].shape[1]} in the tables")
     pos, vel, act, config = worlds["clustered-600"]
     feats = {"vx": vel[:, 0], "vy": vel[:, 1]}
     grid_f, g = tnb.interact(pos, act, kernel, feats, mode="grid", config=config,
@@ -828,13 +892,14 @@ def main() -> int:
     g_pos, g_vel, g_act = flock_operands("boids32768_grid")
     n_boids = g_pos.shape[0]
     config = boids.grid_config(n_boids)
-    grid, cand, rowvals, colvals = grid_operands(tnb, boids, g_pos, g_vel, g_act, config)
+    _, _, rowvals, colvals = grid_operands(tnb, boids, g_pos, g_vel, g_act, config)
     fk = boids.FLOCK_PAIR_KERNEL
     C, K, M = config.num_cells, config.cell_capacity, config.padded_cols
-    # The pairs this run's data needs: occupied slots against real candidates.
-    pairs = int(((grid.slots < n_boids).sum(1) * (cand < n_boids).sum(1)).sum())
-    print(f"cell kernel C={C} K={K} M={M}: {C * K * M} slot-candidate pairs computed, "
-          f"{pairs} between real entities")
+    # The pairs this run's data needs, which the kernel computes: live
+    # slots against live candidates.
+    pairs = live_pairs(rowvals, colvals)
+    print(f"cell kernel C={C} K={K} M={M}: {C * K * M} slot-candidate pairs in the "
+          f"tables, {pairs} computed (between live entities)")
     cell = {
         "name": "cell_slot_forces", "route": "cuda",
         "source": "bevy_ggrs_tpu_torch/csrc/cell_gather.cu",

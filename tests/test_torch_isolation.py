@@ -1,5 +1,5 @@
-"""PyTorch port, isolation: the port and ``chip_smoke.py`` import nothing of
-JAX or of the JAX package, and its entry points run on ``cuda`` unless told
+"""PyTorch port, isolation: the port, ``chip_smoke.py`` and
+``time_kernels.py`` import nothing of JAX or of the JAX package, and its entry points run on ``cuda`` unless told
 otherwise, raising when there is no GPU instead of falling back to the
 CPU."""
 
@@ -23,7 +23,7 @@ from bevy_ggrs_tpu_torch.runner import RollbackRunner
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bevy_ggrs_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "time_kernels.py"
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "bevy_ggrs_tpu")
 

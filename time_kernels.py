@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels, and another tree's, on one GPU.
+
+    python3 time_kernels.py                       # this checkout's kernels
+    python3 time_kernels.py --tree DIR [--tree DIR2 ...]
+
+Each tree is a directory holding a ``bevy_ggrs_tpu_torch/`` package (this
+checkout is ``.``). With several trees, each is timed in a process of its
+own, in turns forward then backward (A, B, B, A), so that versions are
+compared within one call on one card. An earlier version of a kernel is
+timed by unpacking its commit into a git-ignored directory::
+
+    git archive <commit> bevy_ggrs_tpu_torch | tar -x -C _scratch/old
+    python3 time_kernels.py --tree _scratch/old --tree .
+
+Per tree and turn it prints one JSON line: the general tensor-core kernel
+(``pairwise_force_rows_mxu2``) at R = N = 1,024 and the cell kernel
+(``cell_slot_forces``) at the boids-32,768 grid, both on the spawn spiral
+that ``boids.make_world`` lays out (every boid live), each as device
+milliseconds a call (a CUDA graph of many calls, replayed) and
+milliseconds a call with the host's work, and the largest difference from
+its plain version on the same inputs. Only the wrappers' public
+signatures are used, so any tree of the port since they were written
+runs. The last lines are the mean of each tree's turns and the card's name
+and power limit. Without CUDA it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+
+def measure(tree: pathlib.Path) -> dict:
+    """Import the port from ``tree`` and time its two kernels."""
+    import torch
+
+    import chip_smoke as cs  # this checkout's timing helpers
+
+    sys.path.insert(0, str(tree))
+    from bevy_ggrs_tpu_torch.models import boids
+    from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
+    from bevy_ggrs_tpu_torch.ops import neighbor as tnb
+    from bevy_ggrs_tpu_torch.ops import pairwise as tpw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    source = pathlib.Path(tpw.__file__).resolve().parents[2]
+    if source != tree.resolve():
+        raise SystemExit(f"time_kernels: imported the port from {source}, not {tree}")
+    params = boids._kernel_params()
+    out = {"tree": str(tree)}
+
+    state = boids.make_world(1024, 2, device="cuda").commit()
+    pos, vel = state.components["position"], state.components["velocity"]
+    act = (state.alive & state.present["position"]).float()
+    args = (pos, vel, pos, vel, act, act)
+    got = tpw.pairwise_force_rows_mxu2(*args, **params)
+    want = tpw.pairwise_force_rows_mxu2_plain(*args, **params)
+    out["mxu2_R=N=1024"] = {
+        "device_ms": cs.graph_ms(lambda: tpw.pairwise_force_rows_mxu2(*args, **params)),
+        "call_ms": cs.cuda_ms(lambda: tpw.pairwise_force_rows_mxu2(*args, **params)),
+        "max_abs_err": (got - want).abs().max().item(),
+    }
+
+    n = 32768
+    state = boids.make_world(n, 2, device="cuda").commit()
+    config = boids.grid_config(n)
+    _, _, rowvals, colvals = cs.grid_operands(
+        tnb, boids, state.components["position"], state.components["velocity"],
+        (state.alive & state.present["position"]).float(), config)
+    fk = boids.FLOCK_PAIR_KERNEL
+    got = tcg.cell_slot_forces(fk, rowvals, colvals)
+    want = tcg.cell_slot_forces_plain(fk, rowvals, colvals)
+    out[f"cell_C={config.num_cells}_K={config.cell_capacity}_M={config.padded_cols}"] = {
+        "device_ms": cs.graph_ms(lambda: tcg.cell_slot_forces(fk, rowvals, colvals)),
+        "call_ms": cs.cuda_ms(lambda: tcg.cell_slot_forces(fk, rowvals, colvals)),
+        "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want)),
+        "live_pairs": cs.live_pairs(rowvals, colvals),
+    }
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", type=pathlib.Path,
+                    help="a directory holding bevy_ggrs_tpu_torch/ (repeatable)")
+    ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA device is available", file=sys.stderr)
+        return 1
+    if args.one is not None:
+        print(json.dumps(measure(args.one)), flush=True)
+        return 0
+    trees = [t.resolve() for t in args.tree] if args.tree else [ROOT]
+    turns = trees + trees[::-1] if len(trees) > 1 else trees
+    rows = []
+    for tree in turns:
+        res = subprocess.run([sys.executable, str(ROOT / "time_kernels.py"), "--one", str(tree)],
+                             cwd=ROOT, capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            raise SystemExit(f"time_kernels: the turn of {tree} failed (rc {res.returncode})")
+        rows.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        print(json.dumps(rows[-1]), flush=True)
+    means = {}
+    for row in rows:
+        for kernel, vals in row.items():
+            if kernel == "tree":
+                continue
+            for key in ("device_ms", "call_ms"):
+                means.setdefault(row["tree"], {}).setdefault(kernel, {}).setdefault(key, []).append(vals[key])
+    print("mean " + json.dumps({tree: {k: {key: sum(v) / len(v) for key, v in d.items()}
+                                       for k, d in kernels.items()}
+                                for tree, kernels in means.items()}))
+    import chip_smoke as cs
+    print(cs.smi())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
