@@ -1,8 +1,8 @@
 // Shared pieces of the two tensor-core boids force kernels
 // (pairwise_mxu.cu and pairwise_tri.cu): the pair-mask tile, the feature
-// tiles (loaded from prebuilt stacks, or built from the boids), and the
-// combine. Counterparts of _pair_masks, _lane_feats' tiles, _acc_sums and
-// _combine_forces in bevy_ggrs_tpu/ops/pairwise.py.
+// tiles (built from the boids), and the combine. Counterparts of
+// _pair_masks, _lane_feats' tiles, _acc_sums and _combine_forces in
+// bevy_ggrs_tpu/ops/pairwise.py.
 //
 // A tile pairs kTile row boids with kTile column boids. Its three pair
 // matrices (the 0/1 neighbour mask and the hi/lo halves of the separation
@@ -36,86 +36,105 @@ using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma:
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// Stage feature columns [base, base + kTile) of feat_t [10, N] and
-// sep_t [6, N] (bf16, row-major) as zero-padded [16][kLd] tiles.
-__device__ inline void load_features(const __nv_bfloat16* __restrict__ feat,
-                                     const __nv_bfloat16* __restrict__ sep,
-                                     int N, int base, __nv_bfloat16* s_feat,
-                                     __nv_bfloat16* s_sep) {
+// Stage boid j = base + c as column c of a tile, building its features as
+// _lane_feats and _hi_lo do: its position into s_cpx[c] and s_cpy[c]; act,
+// act*px, act*py, act*vx, act*vy in f32, each split into hi = bf16(x) and
+// lo = bf16(x - hi), both rounded to nearest even. Column c of s_feat
+// holds the five hi rows then the five lo rows, of s_sep the hi then the
+// lo rows of the first three; the rows past them, and every row of a
+// column at or past N, are zero.
+__device__ inline void build_feature_column(const float2* __restrict__ pos,
+                                            const float2* __restrict__ vel,
+                                            const float* __restrict__ active,
+                                            int N, int base, int c,
+                                            float* s_cpx, float* s_cpy,
+                                            __nv_bfloat16* s_feat,
+                                            __nv_bfloat16* s_sep) {
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < 16 * kTile; i += blockDim.x) {
-    const int f = i / kTile, c = i % kTile, col = base + c;
-    const bool in = col < N;
-    s_feat[f * kLd + c] = (f < kFeat && in) ? feat[f * N + col] : zero;
-    s_sep[f * kLd + c] = (f < kSep && in) ? sep[f * N + col] : zero;
+  const int j = base + c;
+  const bool in = j < N;
+  const float2 p = in ? pos[j] : make_float2(0.f, 0.f);
+  const float2 v = in ? vel[j] : make_float2(0.f, 0.f);
+  const float a = in ? active[j] : 0.f;
+  s_cpx[c] = p.x;
+  s_cpy[c] = p.y;
+  const float x[5] = {a, __fmul_rn(a, p.x), __fmul_rn(a, p.y),
+                      __fmul_rn(a, v.x), __fmul_rn(a, v.y)};
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x[f]);
+    const __nv_bfloat16 lo =
+        __float2bfloat16_rn(__fsub_rn(x[f], __bfloat162float(hi)));
+    s_feat[f * kLd + c] = hi;
+    s_feat[(5 + f) * kLd + c] = lo;
+    if (f < 3) {
+      s_sep[f * kLd + c] = hi;
+      s_sep[(3 + f) * kLd + c] = lo;
+    }
   }
+#pragma unroll
+  for (int f = kFeat; f < 16; ++f) s_feat[f * kLd + c] = zero;
+#pragma unroll
+  for (int f = kSep; f < 16; ++f) s_sep[f * kLd + c] = zero;
 }
 
-// Stage columns [base, base + kTile) of the boids, building the feature
-// tiles from them as _lane_feats and _hi_lo do: positions into s_cpx and
-// s_cpy; act, act*px, act*py, act*vx, act*vy in f32, each split into
-// hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest even. s_feat
-// holds the five hi rows then the five lo rows, s_sep the hi then the lo
-// rows of the first three; the rows past them and columns at or past N
-// are zero.
+// Stage columns [base, base + kTile) of the boids with
+// build_feature_column, one column a thread.
 __device__ inline void build_features(const float2* __restrict__ pos,
                                       const float2* __restrict__ vel,
                                       const float* __restrict__ active, int N,
                                       int base, float* s_cpx, float* s_cpy,
                                       __nv_bfloat16* s_feat,
                                       __nv_bfloat16* s_sep) {
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int c = threadIdx.x; c < kTile; c += blockDim.x) {
-    const int j = base + c;
-    const bool in = j < N;
-    const float2 p = in ? pos[j] : make_float2(0.f, 0.f);
-    const float2 v = in ? vel[j] : make_float2(0.f, 0.f);
-    const float a = in ? active[j] : 0.f;
-    s_cpx[c] = p.x;
-    s_cpy[c] = p.y;
-    const float x[5] = {a, __fmul_rn(a, p.x), __fmul_rn(a, p.y),
-                        __fmul_rn(a, v.x), __fmul_rn(a, v.y)};
-#pragma unroll
-    for (int f = 0; f < 5; ++f) {
-      const __nv_bfloat16 hi = __float2bfloat16_rn(x[f]);
-      const __nv_bfloat16 lo =
-          __float2bfloat16_rn(__fsub_rn(x[f], __bfloat162float(hi)));
-      s_feat[f * kLd + c] = hi;
-      s_feat[(5 + f) * kLd + c] = lo;
-      if (f < 3) {
-        s_sep[f * kLd + c] = hi;
-        s_sep[(3 + f) * kLd + c] = lo;
-      }
-    }
-#pragma unroll
-    for (int f = kFeat; f < 16; ++f) s_feat[f * kLd + c] = zero;
-#pragma unroll
-    for (int f = kSep; f < 16; ++f) s_sep[f * kLd + c] = zero;
-  }
+  for (int c = threadIdx.x; c < kTile; c += blockDim.x)
+    build_feature_column(pos, vel, active, N, base, c, s_cpx, s_cpy, s_feat,
+                         s_sep);
+}
+
+// One pair of the masks, as _pair_masks builds it: d2 in f32 without FMA
+// contraction, nb = d2 < r_n^2 and d2 >= 1e-10 (and the column inside
+// the boids), w = rsqrt(d2) where also d2 < r_s^2 (no clamp: nb already
+// excludes d2 < 1e-10).
+__device__ inline void pair_mask(float rx, float ry, float cx, float cy,
+                                 bool in, float nr2, float sr2, float& nb,
+                                 float& w) {
+  const float dx = __fsub_rn(rx, cx);
+  const float dy = __fsub_rn(ry, cy);
+  const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+  const bool near = in && d2 < nr2 && d2 >= 1e-10f;
+  nb = near ? 1.f : 0.f;
+  w = (near && d2 < sr2) ? rsqrtf(d2) : 0.f;
 }
 
 // The pair masks of rows (s_rpx, s_rpy) against columns (s_cpx, s_cpy),
-// each kTile long, as _pair_masks builds them: d2 in f32 without FMA
-// contraction, nb = d2 < r_n^2 and d2 >= 1e-10, w = rsqrt(d2) where also
-// d2 < r_s^2 (no clamp: nb already excludes d2 < 1e-10), w split into
-// round-to-nearest bf16 hi and lo. Columns at or past n_cols get zero.
+// each kTile long (pair_mask), w split into round-to-nearest bf16 hi and
+// lo; columns at or past n_cols get zero. For a block of kThreads
+// threads: thread t takes columns 2 (t % 32) and 2 (t % 32) + 1, holding
+// their positions in registers, and rows t / 32, t / 32 + kWarps, ...; a
+// warp stores 64 consecutive bf16 of a matrix row at once, two a thread.
 __device__ inline void build_masks(const float* s_rpx, const float* s_rpy,
                                    const float* s_cpx, const float* s_cpy,
                                    int n_cols, float nr2, float sr2,
                                    __nv_bfloat16* s_neigh,
                                    __nv_bfloat16* s_whi,
                                    __nv_bfloat16* s_wlo) {
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = i / kTile, c = i % kTile;
-    const float dx = __fsub_rn(s_rpx[r], s_cpx[c]);
-    const float dy = __fsub_rn(s_rpy[r], s_cpy[c]);
-    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-    const bool nb = c < n_cols && d2 < nr2 && d2 >= 1e-10f;
-    const float w = (nb && d2 < sr2) ? rsqrtf(d2) : 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(w);
-    s_neigh[r * kLd + c] = __float2bfloat16_rn(nb ? 1.f : 0.f);
-    s_whi[r * kLd + c] = hi;
-    s_wlo[r * kLd + c] = __float2bfloat16_rn(__fsub_rn(w, __bfloat162float(hi)));
+  const int c = 2 * (threadIdx.x % 32);
+  const float cx0 = s_cpx[c], cy0 = s_cpy[c];
+  const float cx1 = s_cpx[c + 1], cy1 = s_cpy[c + 1];
+  const bool in0 = c < n_cols, in1 = c + 1 < n_cols;
+#pragma unroll 2
+  for (int r = threadIdx.x / 32; r < kTile; r += kWarps) {
+    const float rx = s_rpx[r], ry = s_rpy[r];
+    float nb0, nb1, w0, w1;
+    pair_mask(rx, ry, cx0, cy0, in0, nr2, sr2, nb0, w0);
+    pair_mask(rx, ry, cx1, cy1, in1, nr2, sr2, nb1, w1);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(w0, w1);
+    const int at = r * kLd + c;
+    *reinterpret_cast<__nv_bfloat162*>(s_neigh + at) =
+        __floats2bfloat162_rn(nb0, nb1);
+    *reinterpret_cast<__nv_bfloat162*>(s_whi + at) = hi;
+    *reinterpret_cast<__nv_bfloat162*>(s_wlo + at) = __floats2bfloat162_rn(
+        __fsub_rn(w0, __low2float(hi)), __fsub_rn(w1, __high2float(hi)));
   }
 }
 

@@ -6,34 +6,46 @@
 // _force_kernel). Its plain PyTorch version is
 // bevy_ggrs_tpu_torch/ops/pairwise.py::pairwise_force_rows_plain.
 //
-// What bounds it on an H100: operations. Each pair costs about 25 FP32
-// operations and one rsqrt, against 20 bytes per boid read once, so at the
-// main path's N = 1,024 the work is ~27 MFLOP for 20 KB.
+// What bounds it on an H100: operations. Each pair costs about 30 FP32
+// operations with one rsqrt, against 20 bytes per boid read once, so at
+// the main path's R = N = 1,024 the work is ~31 MFLOP for 20 KB: 0.47 us
+// at the card's 67 TFLOP/s, below one launch. What the time depends on
+// there is how many SMs share the pairs and how short each thread's
+// dependent chain of adds is.
 //
-// Design: one thread per row boid with its seven accumulators (count,
-// separation x/y, velocity sum x/y, position sum x/y) in registers. The
-// block stages column tiles of positions, velocities and active flags in
-// shared memory; every thread reads the same column at once, a broadcast.
-// The columns run in one fixed order and nothing is summed with atomics,
-// so repeated launches on the same inputs give bitwise the same forces:
-// SyncTest compares a resimulated frame's checksum with the original's,
-// and any wobble would be a desync. d2 is computed with __fmul_rn and
-// __fadd_rn, never contracted into an FMA, so it has the same float value
-// as the plain version's and borderline pairs fall on the same side of
-// each radius. The combine at the end is _force_kernel's _combine.
-//
-// Known limit: one row per thread gives N / 64 blocks, 16 at N = 1,024, on
-// a card of 132 SMs. Splitting the columns over the warps of a block, with
-// a fixed-order combine, is the first thing to make it faster.
+// Design: one warp per row boid, W rows (warps) a block, W in {1, 2, 4,
+// 8} from ops/pairwise.py::force_rows_launch_shape (8 at R = 1,024: 128
+// blocks on 132 SMs, 32 pairs a thread; 4 or 2 rows a block measured
+// slower, every block staging all the columns). The block stages column
+// tiles of positions, velocities and active flags in shared memory; lane
+// l of every warp takes the tile's columns l, l + 32, ... in ascending
+// order, so the warp reads 32 consecutive columns at once, with its seven
+// accumulators (count, separation x/y, velocity sum x/y, position sum
+// x/y) in registers from +0. The 32 lanes' sums then meet in a fixed
+// __shfl_xor_sync tree (offsets 16, 8, 4, 2, 1), and lane 0 combines as
+// _force_kernel's _combine does. Nothing is summed with atomics and every
+// sum has one order, so repeated launches on the same inputs give bitwise
+// the same forces: SyncTest compares a resimulated frame's checksum with
+// the original's, and any wobble would be a desync. d2 is computed with
+// __fmul_rn and __fadd_rn, never contracted into an FMA, so it has the
+// same float value as the plain version's and borderline pairs fall on
+// the same side of each radius.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 64;    // row boids (threads) per block
-constexpr int kTile = 1024;  // column boids staged per shared-memory tile
+constexpr int kTile = 1024;       // column boids staged per shared-memory tile
+constexpr int kMaxWarps = 8;      // rows per block at most
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void pairwise_force_rows_kernel(
+__device__ inline float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32) pairwise_force_rows_kernel(
     const float2* __restrict__ row_pos, const float2* __restrict__ row_vel,
     const float* __restrict__ row_active, const float2* __restrict__ all_pos,
     const float2* __restrict__ all_vel, const float* __restrict__ all_active,
@@ -43,7 +55,8 @@ __global__ void pairwise_force_rows_kernel(
   __shared__ float2 s_vel[kTile];
   __shared__ float s_act[kTile];
 
-  const int i = blockIdx.x * kRows + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const bool has_row = i < R;
   const float2 p = has_row ? row_pos[i] : make_float2(0.f, 0.f);
   const float2 v = has_row ? row_vel[i] : make_float2(0.f, 0.f);
@@ -53,13 +66,14 @@ __global__ void pairwise_force_rows_kernel(
         spy = 0.f;
   for (int base = 0; base < N; base += kTile) {
     const int cnt = min(kTile, N - base);
-    for (int j = threadIdx.x; j < cnt; j += kRows) {
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
       s_pos[j] = all_pos[base + j];
       s_vel[j] = all_vel[base + j];
       s_act[j] = all_active[base + j];
     }
     __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
+#pragma unroll 4
+    for (int j = lane; j < cnt; j += 32) {
       const float2 q = s_pos[j];
       const float dx = __fsub_rn(p.x, q.x);
       const float dy = __fsub_rn(p.y, q.y);
@@ -80,7 +94,14 @@ __global__ void pairwise_force_rows_kernel(
     }
     __syncthreads();
   }
-  if (!has_row) return;
+  n = warp_sum(n);
+  sx = warp_sum(sx);
+  sy = warp_sum(sy);
+  svx = warp_sum(svx);
+  svy = warp_sum(svy);
+  spx = warp_sum(spx);
+  spy = warp_sum(spy);
+  if (!has_row || lane != 0) return;
   const float n_safe = fmaxf(n, 1.f);
   const float has = n > 0.f ? 1.f : 0.f;
   const float fx = ws * sx + wa * (svx / n_safe - v.x) * has +
@@ -92,13 +113,16 @@ __global__ void pairwise_force_rows_kernel(
 
 }  // namespace
 
+// warps: rows per block, from ops/pairwise.py::force_rows_launch_shape.
 extern "C" int ggrs_pairwise_force_rows(
     const void* row_pos, const void* row_vel, const void* row_active,
     const void* all_pos, const void* all_vel, const void* all_active,
-    void* out, int R, int N, float nr2, float sr2, float ws, float wa,
-    float wc, void* stream) {
-  const int blocks = (R + kRows - 1) / kRows;
-  pairwise_force_rows_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(
+    void* out, int R, int N, int warps, float nr2, float sr2, float ws,
+    float wa, float wc, void* stream) {
+  if (warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (R + warps - 1) / warps;
+  pairwise_force_rows_kernel<<<blocks, warps * 32, 0, (cudaStream_t)stream>>>(
       (const float2*)row_pos, (const float2*)row_vel,
       (const float*)row_active, (const float2*)all_pos,
       (const float2*)all_vel, (const float*)all_active, (float2*)out, R, N,

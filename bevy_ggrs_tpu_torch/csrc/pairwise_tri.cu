@@ -15,25 +15,41 @@
 //
 // What bounds it on an H100: operations on the CUDA cores, as in
 // pairwise_mxu.cu, but over half the pairs: about 18 f32 operations and
-// one rsqrt per unordered pair, against 44 tensor-core flops per ordered
-// pair at the bf16 rate. The partial sums cost 4 KB per tile and side of
-// scratch traffic, 17 MB at N = 4,096, which the 50 MB L2 mostly holds.
+// one rsqrt per unordered pair (2.3 us at N = 4,096), against 44
+// tensor-core flops per ordered pair at the bf16 rate (0.75 us). The
+// partial sums cost 4 KB per tile and side of scratch traffic, 17 MB at
+// N = 4,096, which the 50 MB L2 holds.
 //
 // Design: the column-side sums cross blocks, and Hopper blocks run in no
 // order, so a sum carried from grid step to grid step as on the TPU
 // becomes two passes with no float atomics (ROADMAP: deterministic
-// reductions). Pass 1 runs one block per upper-triangle tile (64 x 64;
-// blocks of the lower triangle exit at once): 256 threads build the masks,
-// warps 0-3 take the row side of row groups 0-3 and warps 4-7 the column
-// side of column groups 0-3 (diagonal tiles have no column side), each
-// over all four k-steps. The block writes its 16 used accumulator rows per
-// side (10 neighbour sums, 6 separation sums, for 64 boids) to scratch
-// that the wrapper allocates. Pass 2 runs one thread per boid: for strip
-// k it adds the row-side partials of tiles (k, cj >= k) in ascending cj,
-// then the column-side partials of tiles (ri < k, k) in ascending ri, adds
-// the two as JAX's _acc_sums does, and combines. Every sum has one fixed
-// order, so launches on the same inputs are bitwise equal. d2 is never
-// contracted into an FMA (pair_mxu.cuh).
+// reductions).
+//
+// Pass 1 (tri_tiles_kernel) runs one block of 256 threads per
+// upper-triangle tile (64 x 64) on a 1-D grid of nb(nb+1)/2 blocks, block
+// b taking the b-th tile of the triangle in row-major order (tile_of;
+// ops/pairwise.py::tri_tile_of mirrors it), so no block is idle. Threads
+// 0-63 build the column tile's bf16 hi/lo features from the boids and
+// threads 64-127 the row tile's (build_feature_column, bitwise
+// _lane_feats), so the wrapper runs no PyTorch op on them. The masks are
+// built two columns a thread, rows by warp (build_masks). Warps 0-3 take
+// the row side of row groups 0-3 and warps 4-7 the column side of column
+// groups 0-3 (diagonal tiles have no column side), each over all four
+// k-steps. The block writes its 16 used accumulator rows per side (10
+// neighbour sums, 6 separation sums, for 64 boids) to scratch that the
+// wrapper allocates, one float4 a thread and side.
+//
+// Pass 2 (tri_combine_kernel) gives each (boid, accumulator row) its own
+// thread: blocks of 16 warps over 32 boids, warp q summing row q for its
+// 32 boids, 2 blocks a strip. For strip k it adds the row-side partials
+// of tiles (k, cj >= k) in ascending cj, then the column-side partials of
+// tiles (ri < k, k) in ascending ri, each from +0 with the loads of 8
+// partials issued before their adds; then the two sums, as JAX's
+// _acc_sums does; then one warp combines a boid a lane. That is the order
+// of the design before this one (one thread per boid), so the forces are
+// bitwise the same. Every sum has one fixed order, so launches on the
+// same inputs are bitwise equal, as SyncTest needs. d2 is never
+// contracted into an FMA.
 
 #include "pair_mxu.cuh"
 
@@ -42,18 +58,34 @@ namespace {
 using namespace ggrs_mxu;
 
 constexpr int kParts = kFeat + kSep;  // accumulator rows kept per boid
+constexpr int kCombineBoids = 32;     // boids per combine block, a lane each
+constexpr int kAhead = 8;             // partials loaded before their adds
 
-// Index of the upper-triangle tile (ri, cj >= ri) among nb strips.
-__device__ inline long tile_index(int ri, int cj, int nb) {
-  return (long)ri * (2 * nb - ri + 1) / 2 + (cj - ri);
+// First tile of strip ri among the upper-triangle tiles in row-major
+// order: strip r holds the nb - r tiles (r, r..nb-1).
+__device__ inline long strip_start(int ri, int nb) {
+  return (long)ri * (2 * nb - ri + 1) / 2;
 }
 
+// The tile (ri, cj >= ri) that is the b-th of the upper triangle: ri from
+// the root of strip_start(ri) = b, then put right in integers.
+__device__ inline void tile_of(long b, int nb, int& ri, int& cj) {
+  const double m = 2.0 * nb + 1.0;
+  int r = (int)((m - sqrt(m * m - 8.0 * (double)b)) * 0.5);
+  r = max(0, min(r, nb - 1));
+  while (r > 0 && strip_start(r, nb) > b) --r;
+  while (r + 1 < nb && strip_start(r + 1, nb) <= b) ++r;
+  ri = r;
+  cj = r + (int)(b - strip_start(r, nb));
+}
+
+// part: float [2 sides][tiles][kParts][kTile], side 0 the row side.
 __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
-    const float2* __restrict__ pos, const __nv_bfloat16* __restrict__ feat,
-    const __nv_bfloat16* __restrict__ sep, float* __restrict__ rowpart,
-    float* __restrict__ colpart, int N, int nb, float nr2, float sr2) {
-  const int cj = blockIdx.x, ri = blockIdx.y;
-  if (cj < ri) return;
+    const float2* __restrict__ pos, const float2* __restrict__ vel,
+    const float* __restrict__ active, float* __restrict__ part, int N, int nb,
+    float nr2, float sr2) {
+  int ri, cj;
+  tile_of(blockIdx.x, nb, ri, cj);
   const bool off_diag = cj > ri;
   __shared__ __align__(128) unsigned char smem[kMaskBytes + 4 * kFeatBytes];
   __shared__ float s_rpx[kTile], s_rpy[kTile], s_cpx[kTile], s_cpy[kTile];
@@ -66,16 +98,13 @@ __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
   auto* s_sep_r = s_feat_r + 16 * kLd;
 
   const int row0 = ri * kTile, col0 = cj * kTile;
-  for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
-    const float2 p = row0 + t < N ? pos[row0 + t] : make_float2(0.f, 0.f);
-    const float2 q = col0 + t < N ? pos[col0 + t] : make_float2(0.f, 0.f);
-    s_rpx[t] = p.x;
-    s_rpy[t] = p.y;
-    s_cpx[t] = q.x;
-    s_cpy[t] = q.y;
+  if (threadIdx.x < kTile) {
+    build_feature_column(pos, vel, active, N, col0, threadIdx.x, s_cpx,
+                         s_cpy, s_feat_c, s_sep_c);
+  } else if (threadIdx.x < 2 * kTile) {
+    build_feature_column(pos, vel, active, N, row0, threadIdx.x - kTile,
+                         s_rpx, s_rpy, s_feat_r, s_sep_r);
   }
-  load_features(feat, sep, N, col0, s_feat_c, s_sep_c);
-  if (off_diag) load_features(feat, sep, N, row0, s_feat_r, s_sep_r);
   __syncthreads();
   build_masks(s_rpx, s_rpy, s_cpx, s_cpy, N - col0, nr2, sr2, s_neigh, s_whi,
               s_wlo);
@@ -108,8 +137,8 @@ __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
   __syncthreads();
 
   // Accumulators to shared memory over the mask tiles, as float
-  // [side][acc_n, acc_w][16][kTile]; then the 16 used rows of each side
-  // to scratch, as [tile][kParts][kTile].
+  // [side][acc_n, acc_w][16][kTile]; then the 16 used rows of each side to
+  // scratch, one float4 a thread and side.
   float* stage = reinterpret_cast<float*>(smem);
   if (side == 0 || off_diag) {
     wmma::store_matrix_sync(stage + (side * 2 + 0) * 16 * kTile + 16 * g,
@@ -118,58 +147,87 @@ __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
                             acc_w, kTile, wmma::mem_row_major);
   }
   __syncthreads();
-  const long base = tile_index(ri, cj, nb) * kParts * kTile;
-  for (int i = threadIdx.x; i < kParts * kTile; i += blockDim.x) {
-    const int q = i / kTile, t = i % kTile;
+  const long tiles = (long)nb * (nb + 1) / 2;
+  const long base = (long)blockIdx.x * kParts * kTile;
+  for (int i = threadIdx.x; i < kParts * kTile / 4; i += blockDim.x) {
+    const int q = i / (kTile / 4), t = 4 * (i % (kTile / 4));
     const int src = (q < kFeat ? q : 16 + q - kFeat) * kTile + t;
-    rowpart[base + i] = stage[src];
-    if (off_diag) colpart[base + i] = stage[2 * 16 * kTile + src];
+    const long dst = base + q * kTile + t;
+    *reinterpret_cast<float4*>(part + dst) =
+        *reinterpret_cast<const float4*>(stage + src);
+    if (off_diag) {
+      *reinterpret_cast<float4*>(part + tiles * kParts * kTile + dst) =
+          *reinterpret_cast<const float4*>(stage + 2 * 16 * kTile + src);
+    }
   }
 }
 
-__global__ void tri_combine_kernel(
+// Sum of n partials of one (boid, accumulator row), the j-th at
+// part[offset(j)], from +0 in ascending j; the loads of kAhead partials
+// are issued before their adds.
+template <typename Offset>
+__device__ inline float sum_partials(const float* __restrict__ part, int n,
+                                     Offset offset) {
+  float s = 0.f;
+  for (int j0 = 0; j0 < n; j0 += kAhead) {
+    float v[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      v[u] = j0 + u < n ? part[offset(j0 + u)] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (j0 + u < n) s += v[u];
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kParts * kCombineBoids) tri_combine_kernel(
     const float2* __restrict__ pos, const float2* __restrict__ vel,
-    const float* __restrict__ active, const float* __restrict__ rowpart,
-    const float* __restrict__ colpart, float2* __restrict__ out, int N, int nb,
-    float ws, float wa, float wc) {
-  const int k = blockIdx.x, t = threadIdx.x, i = k * kTile + t;
-  if (i >= N) return;
-  float s[kParts], c[kParts];
+    const float* __restrict__ active, const float* __restrict__ part,
+    float2* __restrict__ out, int N, int nb, float ws, float wa, float wc) {
+  constexpr int kHalves = kTile / kCombineBoids;
+  __shared__ float s_sum[kParts][kCombineBoids];
+  const int k = blockIdx.x / kHalves, lane = threadIdx.x % 32;
+  const int q = threadIdx.x / 32;
+  const int t = (blockIdx.x % kHalves) * kCombineBoids + lane;
+  const long stride = (long)kParts * kTile;  // floats per tile and side
+  const float* rows = part + strip_start(k, nb) * stride + q * kTile + t;
+  const float* cols = part + (long)nb * (nb + 1) / 2 * stride + q * kTile + t;
+  const float s = sum_partials(rows, nb - k,
+                               [&](int j) { return (long)j * stride; });
+  const float c = sum_partials(cols, k, [&](int ri) {
+    return (strip_start(ri, nb) + (k - ri)) * stride;
+  });
+  s_sum[q][lane] = s + c;
+  __syncthreads();
+  const int i = k * kTile + t;
+  if (q != 0 || i >= N) return;
+  float sn[kFeat], sw[kSep];
 #pragma unroll
-  for (int q = 0; q < kParts; ++q) s[q] = c[q] = 0.f;
-  for (int cj = k; cj < nb; ++cj) {
-    const float* p = rowpart + tile_index(k, cj, nb) * kParts * kTile + t;
+  for (int f = 0; f < kFeat; ++f) sn[f] = s_sum[f][lane];
 #pragma unroll
-    for (int q = 0; q < kParts; ++q) s[q] += p[q * kTile];
-  }
-  for (int ri = 0; ri < k; ++ri) {
-    const float* p = colpart + tile_index(ri, k, nb) * kParts * kTile + t;
-#pragma unroll
-    for (int q = 0; q < kParts; ++q) c[q] += p[q * kTile];
-  }
-#pragma unroll
-  for (int q = 0; q < kParts; ++q) s[q] = s[q] + c[q];
+  for (int f = 0; f < kSep; ++f) sw[f] = s_sum[kFeat + f][lane];
   const float2 p = pos[i], v = vel[i];
-  out[i] = combine(s, s + kFeat, p.x, p.y, v.x, v.y, active[i], ws, wa, wc);
+  out[i] = combine(sn, sw, p.x, p.y, v.x, v.y, active[i], ws, wa, wc);
 }
 
 }  // namespace
 
+// part: the wrapper's scratch, ops/pairwise.py::tri_scratch_shape.
 extern "C" int ggrs_pairwise_force_square_tri(
-    const void* pos, const void* vel, const void* active, const void* feat,
-    const void* sep, void* rowpart, void* colpart, void* out, int N,
-    float nr2, float sr2, float ws, float wa, float wc, void* stream) {
+    const void* pos, const void* vel, const void* active, void* part,
+    void* out, int N, float nr2, float sr2, float ws, float wa, float wc,
+    void* stream) {
   const int nb = (N + kTile - 1) / kTile;
   const cudaStream_t s = (cudaStream_t)stream;
-  tri_tiles_kernel<<<dim3(nb, nb), kThreads, 0, s>>>(
-      (const float2*)pos, (const __nv_bfloat16*)feat,
-      (const __nv_bfloat16*)sep, (float*)rowpart, (float*)colpart, N, nb, nr2,
-      sr2);
+  tri_tiles_kernel<<<nb * (nb + 1) / 2, kThreads, 0, s>>>(
+      (const float2*)pos, (const float2*)vel, (const float*)active,
+      (float*)part, N, nb, nr2, sr2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tri_combine_kernel<<<nb, kTile, 0, s>>>(
-      (const float2*)pos, (const float2*)vel, (const float*)active,
-      (const float*)rowpart, (const float*)colpart, (float2*)out, N, nb, ws,
-      wa, wc);
+  tri_combine_kernel<<<nb * (kTile / kCombineBoids), kParts * kCombineBoids,
+                       0, s>>>((const float2*)pos, (const float2*)vel,
+                               (const float*)active, (const float*)part,
+                               (float2*)out, N, nb, ws, wa, wc);
   return (int)cudaGetLastError();
 }

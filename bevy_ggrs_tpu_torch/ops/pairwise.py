@@ -105,7 +105,35 @@ def pairwise_force_rows_plain(
     return torch.stack([fx, fy], dim=1) * row_active[:, None]
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_FORCE_WARPS = (8, 4, 2, 1)  # rows (one warp each) per block of csrc/pairwise.cu
+FORCE_LANES = 32  # threads that split each row's columns: one warp
+
+
+def force_rows_launch_shape(r: int) -> Tuple[int, int]:
+    """``(W, blocks)`` of the f32 force kernel for ``r`` rows: one warp per
+    row, ``W`` rows a block, ``blocks = ceil(r / W)``. ``W`` halves from 8
+    while the blocks would fill fewer than half the SMs, so that small
+    ``r`` still spreads over the card; every block stages all the columns,
+    so fewer, larger blocks stage less (8 at ``r = 1,024``: 128 blocks)."""
+    for w in _FORCE_WARPS:
+        blocks = -(-r // w)
+        if 2 * blocks >= _SMS:
+            break
+    return w, blocks
+
+
+def force_rows_lane_columns(n: int, lane: int) -> range:
+    """The columns, in the order summed, that lane ``lane`` of a row's warp
+    walks in ``csrc/pairwise.cu``: ``lane, lane + 32, ...`` (the shared-
+    memory tiles hold a multiple of 32 columns, so the stride runs on
+    across them)."""
+    return range(lane, n, FORCE_LANES)
+
+
+# The C entries of csrc/pairwise.cu and csrc/pairwise_mxu.cu: seven
+# pointers, R, N, the launch shape's W or P, five floats and the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
              + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
@@ -126,8 +154,9 @@ def pairwise_force_rows(
     """``f32[R, 2]`` flocking force on each row boid from all boids.
 
     A CPU tensor takes :func:`pairwise_force_rows_plain`; a CUDA tensor
-    launches the kernel (``csrc/pairwise.cu``) on the current stream, and
-    anything it cannot take raises."""
+    launches the kernel (``csrc/pairwise.cu``) on the current stream, in
+    blocks of :func:`force_rows_launch_shape`, and anything it cannot take
+    raises."""
     params = dict(neighbor_radius=neighbor_radius,
                   separation_radius=separation_radius,
                   w_separation=w_separation, w_alignment=w_alignment,
@@ -141,13 +170,14 @@ def pairwise_force_rows(
         return pairwise_force_rows_plain(
             row_pos, row_vel, all_pos, all_vel, row_active, all_active,
             **params)
+    warps, _ = force_rows_launch_shape(R)
     out = torch.empty((R, 2), dtype=torch.float32, device=device)
     fn = _build.function("pairwise", "ggrs_pairwise_force_rows", _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
                  all_pos.data_ptr(), all_vel.data_ptr(), all_active.data_ptr(),
-                 out.data_ptr(), R, N, *_launch_params(**params), stream)
+                 out.data_ptr(), R, N, warps, *_launch_params(**params), stream)
     _build.check(err, "pairwise_force_rows")
     pairwise_force_rows.launches += 1
     return out
@@ -288,7 +318,6 @@ def _launch_params(neighbor_radius, separation_radius, w_separation,
 
 
 MXU_TILE = 64  # the tensor-core kernels' tile edge (csrc/pair_mxu.cuh kTile)
-_SMS = 132  # streaming multiprocessors of an H100 SXM
 _CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable thread-block cluster limit
 
 
@@ -313,10 +342,6 @@ def mxu2_tile_ranges(n: int, p: int) -> Tuple[Tuple[int, int], ...]:
     of ``p`` walks, as ``csrc/pairwise_mxu.cu`` splits them."""
     tiles = -(-n // MXU_TILE)
     return tuple((q * tiles // p, (q + 1) * tiles // p) for q in range(p))
-
-
-_MXU_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
 def pairwise_force_rows_mxu2(
@@ -349,7 +374,7 @@ def pairwise_force_rows_mxu2(
     p, _ = mxu2_launch_shape(R, N)
     out = torch.empty((R, 2), dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
-                         _MXU_ARGTYPES)
+                         _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
@@ -364,15 +389,36 @@ pairwise_force_rows_mxu2.launches = 0
 
 _TRI_PARTS = 16  # accumulator rows kept per boid and tile side
 
-_TRI_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+_TRI_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                  + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
-def tri_scratch_shape(n: int) -> Tuple[int, int, int]:
-    """Shape of each of the triangle kernel's two partial-sum buffers: one
-    ``[16, 64]`` block per upper-triangle tile."""
+def tri_scratch_shape(n: int) -> Tuple[int, int, int, int]:
+    """Shape of the triangle kernel's partial-sum scratch: for each side
+    (row side, then column side) one ``[16, 64]`` block per upper-triangle
+    tile, in the tile order of :func:`tri_tile_of`."""
     nb = -(-n // MXU_TILE)
-    return nb * (nb + 1) // 2, _TRI_PARTS, MXU_TILE
+    return 2, nb * (nb + 1) // 2, _TRI_PARTS, MXU_TILE
+
+
+def _strip_start(ri: int, nb: int) -> int:
+    return ri * (2 * nb - ri + 1) // 2
+
+
+def tri_tile_of(b: int, nb: int) -> Tuple[int, int]:
+    """The tile ``(ri, cj >= ri)`` that block ``b`` of the triangle
+    kernel's tile pass takes among ``nb`` strips: the ``b``-th tile of the
+    upper triangle in row-major order, as ``tile_of`` in
+    ``csrc/pairwise_tri.cu`` computes it (the root of the strip's start,
+    then put right in integers)."""
+    m = 2.0 * nb + 1.0
+    r = int((m - np.sqrt(m * m - 8.0 * b)) * 0.5)
+    r = max(0, min(r, nb - 1))
+    while r > 0 and _strip_start(r, nb) > b:
+        r -= 1
+    while r + 1 < nb and _strip_start(r + 1, nb) <= b:
+        r += 1
+    return r, r + b - _strip_start(r, nb)
 
 
 def pairwise_force_square_mxu_tri(
@@ -386,24 +432,22 @@ def pairwise_force_square_mxu_tri(
 
     A CPU tensor takes :func:`pairwise_force_square_mxu_tri_plain`; a CUDA
     tensor launches the two passes of ``csrc/pairwise_tri.cu`` on the
-    current stream, with their partial-sum scratch allocated here, and
-    anything it cannot take raises."""
+    current stream, with their partial-sum scratch allocated here; the
+    kernel builds the feature tiles itself, so nothing but ``torch.empty``
+    runs here. Anything it cannot take raises."""
     N = pos.shape[0]
     device = _check_inputs(pos=(pos, (N, 2)), vel=(vel, (N, 2)),
                            active=(active, (N,)))
     if device.type == "cpu":
         return pairwise_force_square_mxu_tri_plain(pos, vel, active, **params)
-    feat_t, sep_t = _feats_of(pos, vel, active)
-    rowpart = torch.empty(tri_scratch_shape(N), dtype=torch.float32, device=device)
-    colpart = torch.empty_like(rowpart)
+    part = torch.empty(tri_scratch_shape(N), dtype=torch.float32, device=device)
     out = torch.empty((N, 2), dtype=torch.float32, device=device)
     fn = _build.function("pairwise_tri", "ggrs_pairwise_force_square_tri",
                          _TRI_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), vel.data_ptr(), active.data_ptr(),
-                 feat_t.data_ptr(), sep_t.data_ptr(), rowpart.data_ptr(),
-                 colpart.data_ptr(), out.data_ptr(), N,
+                 part.data_ptr(), out.data_ptr(), N,
                  *_launch_params(**params), stream)
     _build.check(err, "pairwise_force_square_mxu_tri")
     pairwise_force_square_mxu_tri.launches += 1

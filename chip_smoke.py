@@ -12,8 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (bool/u8/i32/f32 components, more than 64 words a slot, ragged
    capacities), single worlds and stacked ring rows, bitwise.
 3. Force kernel against its plain version on the card: N in {1000, 1024,
-   4096} and a row subset, within ``atol=2e-6``; a second launch on the
-   same inputs is bitwise equal to the first.
+   4096}, a row subset, a single row, five rows, 20 boids (fewer than a
+   warp's 32 lanes) and 4,100 (a ragged last column tile and row block),
+   within ``atol=2e-6``; a second launch on the same inputs is bitwise
+   equal to the first.
 4. box_game SyncTest on ``cuda`` through ``GGRSPlugin``: 2 players,
    ``check_distance`` 7, 300 frames, no ``MismatchedChecksum``, and its
    checksum stream bitwise equal to the same run's on the CPU.
@@ -26,8 +28,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at (R, N) = (1,024, 1,024), (1,000, 1,000), rows 256..512 of 1,024,
    (1, 1,024), (65, 1,000), (1,024, 64), (1,024, 65), (1,024, 4,100) and
    (4,096, 4,096), which take clusters of 1 to 8 blocks, ragged row blocks
-   and a ragged last column tile; the triangle at N = 4,096 and 4,100;
-   within ``1e-4`` of the largest force; and on uniform random flocks,
+   and a ragged last column tile; the triangle at N = 20 and 64 (one
+   diagonal tile, ragged or full), 65, 1,000, 4,096 and 4,100 (a ragged
+   last strip); within ``1e-4`` of the largest force; and on uniform random flocks,
    whose near-coincident pairs amplify the hi/lo rounding, within ``1e-3``
    of it. A second launch is bitwise equal to the first.
 7. Cell kernel against its plain version on the card, on the
@@ -52,7 +55,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    path's shapes, on the device alone (a CUDA graph of many calls,
    replayed) and per call with the host's work, beside the least time the
    card could take for the same work; the main path's pieces around the
-   kernels; the per-tick times of phases 4, 5 and 8; and, under
+   kernels; the triangle's tile pass and combine apart (device time under
+   ``torch.profiler``); the per-tick times of phases 4, 5 and 8; and, under
    ``torch.profiler``, the device's busy time per tick of the boids
    SyncTests, continued for 8 more ticks after their counts were read.
 
@@ -262,10 +266,20 @@ def flock_inputs(n: int, seed: int = 0):
     return [torch.from_numpy(a).cuda() for a in (pos, vel, active)]
 
 
+# The f32 kernel's cases: (boids, row boids). Beside the main path's square
+# case they cover a row subset, one row (a block of one warp), five rows,
+# fewer columns than a warp has lanes, and N = 4,100: a ragged last
+# column tile (1,024 a tile) and a ragged last block of 8 rows.
+FORCE_CASES = (
+    (1000, slice(0, 1000)), (1024, slice(0, 1024)), (4096, slice(0, 4096)),
+    (1024, slice(256, 512)), (1024, slice(1, 2)), (1024, slice(1, 6)),
+    (20, slice(0, 20)), (4100, slice(0, 4100)),
+)
+
+
 def check_force_kernel(tpw, params) -> float:
     worst = 0.0
-    cases = [(n, slice(0, n)) for n in (1000, 1024, 4096)] + [(1024, slice(256, 512))]
-    for n, rows in cases:
+    for n, rows in FORCE_CASES:
         pos, vel, act = flock_inputs(n, seed=n)
         args = (pos[rows].contiguous(), vel[rows].contiguous(), pos, vel,
                 act[rows].contiguous(), act)
@@ -274,12 +288,15 @@ def check_force_kernel(tpw, params) -> float:
         c = tpw.pairwise_force_rows(*args, **params)
         torch.cuda.synchronize()
         err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
         check(err <= FORCE_ATOL, f"forces N={n} rows={rows}: error {err}")
         check(torch.equal(a, c), f"forces N={n} rows={rows}: launch to launch")
-        check(a.abs().max().item() > 1e-3, f"forces N={n}: all near zero")
+        check(scale > 1e-3, f"forces N={n} rows={rows}: all near zero")
         worst = max(worst, err)
-        print(f"forces N={n} rows={rows.start}:{rows.stop} max_abs_err={err:.3e} "
-              f"(atol {FORCE_ATOL}) repeat bitwise")
+        w, blocks = tpw.force_rows_launch_shape(args[0].shape[0])
+        print(f"forces N={n} rows={rows.start}:{rows.stop} ({blocks} blocks of {w} rows) "
+              f"max_abs_err={err:.3e} (atol {FORCE_ATOL}, largest force {scale:.4f}) "
+              f"repeat bitwise")
     return worst
 
 
@@ -327,6 +344,12 @@ MXU2_CASES = (
 )
 
 
+# The triangle's cases: one diagonal tile, ragged (20) or full (64); two
+# strips, the second of one boid (65); a ragged last strip of 16 (1,000)
+# or 4 boids (4,100); and the main path's 4,096.
+TRI_CASES = (20, 64, 65, 1000, 4096, 4100)
+
+
 def check_mxu_kernels(tpw, boids, params) -> dict:
     worst = {"mxu2": 0.0, "tri": 0.0}
     for data, rtol in (("spiral", MXU_RTOL), ("random", MXU_RANDOM_RTOL)):
@@ -345,7 +368,7 @@ def check_mxu_kernels(tpw, boids, params) -> dict:
                        tpw.pairwise_force_rows_mxu2_plain(*args, **params),
                        tpw.pairwise_force_rows_mxu2(*args, **params), rtol)
             worst["mxu2"] = max(worst["mxu2"], err)
-        for n in (4096, 4100):
+        for n in TRI_CASES:
             pos, vel, act = flock(n)
             err = held(f"tri {data} N={n}",
                        tpw.pairwise_force_square_mxu_tri(pos, vel, act, **params),
@@ -610,6 +633,24 @@ def timings(label: str, kernel, plain, nbytes: int, ops: int = 0,
           f"bound {out['bound_ms']:.6f} ms ({out['bound_by']}: {nbytes} bytes, {ops} ops, "
           f"{tc_flops} tensor-core flops)")
     return out
+
+
+def kernel_device_ms(fn, calls: int = 50) -> dict:
+    """Device milliseconds a call of each CUDA kernel that ``fn`` launches,
+    by kernel name, over ``calls`` calls under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    return {name: us / 1e3 / calls for name, us in by_name.items()}
 
 
 def device_busy(app, ticks: int = 8) -> dict:
@@ -889,6 +930,13 @@ def main() -> int:
             ops=n_boids * (n_boids + 1) // 2 * MXU_MASK_OPS_PER_PAIR,
             tc_flops=n_boids * n_boids * MXU_TC_FLOPS_PER_PAIR),
     }
+    passes = kernel_device_ms(
+        lambda: tpw.pairwise_force_square_mxu_tri(tri_pos, tri_vel, tri_act, **params))
+    split = {stage: sum(ms for name, ms in passes.items() if f"tri_{stage}_kernel" in name)
+             for stage in ("tiles", "combine")}
+    check(all(ms > 0 for ms in split.values()), f"tri passes not seen: {passes}")
+    print(f"tri N={n_boids} passes (device ms a call, profiler): "
+          f"tile pass {split['tiles']:.6f}, combine {split['combine']:.6f}")
     g_pos, g_vel, g_act = flock_operands("boids32768_grid")
     n_boids = g_pos.shape[0]
     config = boids.grid_config(n_boids)

@@ -220,6 +220,7 @@ def test_wrappers_check_inputs_and_never_launch_on_cpu():
 
 
 def test_tri_scratch_holds_one_block_per_upper_tile():
-    assert tpw.tri_scratch_shape(4096) == (64 * 65 // 2, 16, 64)
-    assert tpw.tri_scratch_shape(4100) == (65 * 66 // 2, 16, 64)
-    assert tpw.tri_scratch_shape(1) == (1, 16, 64)
+    """One buffer: the row side's blocks, then the column side's."""
+    assert tpw.tri_scratch_shape(4096) == (2, 64 * 65 // 2, 16, 64)
+    assert tpw.tri_scratch_shape(4100) == (2, 65 * 66 // 2, 16, 64)
+    assert tpw.tri_scratch_shape(1) == (2, 1, 16, 64)

@@ -13,21 +13,26 @@ timed by unpacking its commit into a git-ignored directory::
     git archive <commit> bevy_ggrs_tpu_torch | tar -x -C _scratch/old
     python3 time_kernels.py --tree _scratch/old --tree .
 
-Per tree and turn it prints one JSON line: the general tensor-core kernel
-(``pairwise_force_rows_mxu2``) at R = N = 1,024 and the cell kernel
-(``cell_slot_forces``) at the boids-32,768 grid, both on the spawn spiral
-that ``boids.make_world`` lays out (every boid live), each as device
-milliseconds a call (a CUDA graph of many calls, replayed) and
-milliseconds a call with the host's work, and the largest difference from
-its plain version on the same inputs. Only the wrappers' public
-signatures are used, so any tree of the port since they were written
-runs. The last lines are the mean of each tree's turns and the card's name
-and power limit. Without CUDA it exits 1.
+Per tree and turn it prints one JSON line with four kernels on the spawn
+spiral that ``boids.make_world`` lays out (every boid live): the f32
+force kernel (``pairwise_force_rows``) and the general tensor-core kernel
+(``pairwise_force_rows_mxu2``) at R = N = 1,024, the triangle
+(``pairwise_force_square_mxu_tri``) at N = 4,096, and the cell kernel
+(``cell_slot_forces``) at the boids-32,768 grid. Each has its device
+milliseconds a call (a CUDA graph of many calls, replayed), its
+milliseconds a call with the host's work, the largest difference from its
+plain version on the same inputs, and the SHA-256 of its output's bytes,
+so that two trees' outputs can be compared bit for bit. Only the
+wrappers' public signatures are used, so any tree of the port since they
+were written runs. The last lines are the mean of each tree's turns,
+whether each kernel's output bits were the same in every turn of every
+tree, and the card's name and power limit. Without CUDA it exits 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -36,8 +41,28 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
+def sha256(*tensors) -> str:
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def timed(cs, kernel, got, want) -> dict:
+    """``kernel``'s device and per-call milliseconds, and its output
+    ``got`` against the plain version's ``want`` (tensors or tuples of
+    them)."""
+    got, want = ((x,) if hasattr(x, "shape") else tuple(x) for x in (got, want))
+    return {
+        "device_ms": cs.graph_ms(kernel),
+        "call_ms": cs.cuda_ms(kernel),
+        "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want)),
+        "sha256": sha256(*got),
+    }
+
+
 def measure(tree: pathlib.Path) -> dict:
-    """Import the port from ``tree`` and time its two kernels."""
+    """Import the port from ``tree`` and time its four force kernels."""
     import torch
 
     import chip_smoke as cs  # this checkout's timing helpers
@@ -59,13 +84,22 @@ def measure(tree: pathlib.Path) -> dict:
     pos, vel = state.components["position"], state.components["velocity"]
     act = (state.alive & state.present["position"]).float()
     args = (pos, vel, pos, vel, act, act)
-    got = tpw.pairwise_force_rows_mxu2(*args, **params)
-    want = tpw.pairwise_force_rows_mxu2_plain(*args, **params)
-    out["mxu2_R=N=1024"] = {
-        "device_ms": cs.graph_ms(lambda: tpw.pairwise_force_rows_mxu2(*args, **params)),
-        "call_ms": cs.cuda_ms(lambda: tpw.pairwise_force_rows_mxu2(*args, **params)),
-        "max_abs_err": (got - want).abs().max().item(),
-    }
+    out["f32_R=N=1024"] = timed(
+        cs, lambda: tpw.pairwise_force_rows(*args, **params),
+        tpw.pairwise_force_rows(*args, **params),
+        tpw.pairwise_force_rows_plain(*args, **params))
+    out["mxu2_R=N=1024"] = timed(
+        cs, lambda: tpw.pairwise_force_rows_mxu2(*args, **params),
+        tpw.pairwise_force_rows_mxu2(*args, **params),
+        tpw.pairwise_force_rows_mxu2_plain(*args, **params))
+
+    state = boids.make_world(4096, 2, device="cuda").commit()
+    tri = (state.components["position"], state.components["velocity"],
+           (state.alive & state.present["position"]).float())
+    out["tri_N=4096"] = timed(
+        cs, lambda: tpw.pairwise_force_square_mxu_tri(*tri, **params),
+        tpw.pairwise_force_square_mxu_tri(*tri, **params),
+        tpw.pairwise_force_square_mxu_tri_plain(*tri, **params))
 
     n = 32768
     state = boids.make_world(n, 2, device="cuda").commit()
@@ -74,12 +108,10 @@ def measure(tree: pathlib.Path) -> dict:
         tnb, boids, state.components["position"], state.components["velocity"],
         (state.alive & state.present["position"]).float(), config)
     fk = boids.FLOCK_PAIR_KERNEL
-    got = tcg.cell_slot_forces(fk, rowvals, colvals)
-    want = tcg.cell_slot_forces_plain(fk, rowvals, colvals)
     out[f"cell_C={config.num_cells}_K={config.cell_capacity}_M={config.padded_cols}"] = {
-        "device_ms": cs.graph_ms(lambda: tcg.cell_slot_forces(fk, rowvals, colvals)),
-        "call_ms": cs.cuda_ms(lambda: tcg.cell_slot_forces(fk, rowvals, colvals)),
-        "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want)),
+        **timed(cs, lambda: tcg.cell_slot_forces(fk, rowvals, colvals),
+                tcg.cell_slot_forces(fk, rowvals, colvals),
+                tcg.cell_slot_forces_plain(fk, rowvals, colvals)),
         "live_pairs": cs.live_pairs(rowvals, colvals),
     }
     return out
@@ -120,6 +152,9 @@ def main() -> int:
     print("mean " + json.dumps({tree: {k: {key: sum(v) / len(v) for key, v in d.items()}
                                        for k, d in kernels.items()}
                                 for tree, kernels in means.items()}))
+    print("same bits in every turn " + json.dumps({
+        kernel: len({row[kernel]["sha256"] for row in rows}) == 1
+        for kernel in rows[0] if kernel != "tree"}))
     import chip_smoke as cs
     print(cs.smi())
     return 0
