@@ -26,8 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bevy_ggrs_tpu_torch.ops.checksum import checksum
-from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, tree_leaves, tree_map
+from bevy_ggrs_tpu_torch.ops.checksum import checksum, world_checksum
+from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, tree_leaves
 
 
 class StateFault(RuntimeError):
@@ -73,12 +73,10 @@ def attest_ring(ring: SnapshotRing) -> np.ndarray:
 def verify_row(ring: SnapshotRing, frame: int) -> bool:
     """Restore-path guard (singleton rings): does ``frame``'s row still
     hash to its save-time digest? A non-resident frame returns True — a
-    load of a rotated-out frame is a protocol bug, not corruption."""
-    row = int(frame) % ring.depth
-    if int(ring.frames[row]) != int(frame):
-        return True
-    digest = checksum(tree_map(lambda x: x[row], ring.states))
-    return bool(torch.equal(digest, ring.checksums[row]))
+    load of a rotated-out frame is a protocol bug, not corruption. One
+    launch of the checksum kernel in its guard mode, which hashes the row
+    in place and compares it on the device, and one 4-byte read."""
+    return bool(world_checksum(None, "guard", ring=ring, frame=frame).item())
 
 
 def warm(ring: SnapshotRing, state=None) -> None:

@@ -42,8 +42,7 @@ def rollout_burst(
     frame = int(start_frame)
     for t, (save, adv) in enumerate(zip(save_mask, adv_mask)):
         if save:
-            ring, cs = ring_save(ring, state, frame)
-            checksums[t] = cs
+            ring, _ = ring_save(ring, state, frame, out=checksums[t])
         if adv:
             state = schedule(state, PlayerInputs(bits=bits[t], status=status[t]))
             frame += 1

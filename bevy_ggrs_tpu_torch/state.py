@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -438,8 +438,9 @@ def checksum(state: WorldState) -> torch.Tensor:
 
     Per slot a murmur3 chain over the rollback id and every present
     component's words; slot hashes wrapping-sum over live slots, and the
-    resource hash is added. This is the plain version of the checksum
-    kernel (:func:`bevy_ggrs_tpu_torch.ops.checksum.entity_hash_sum`)."""
+    resource hash is added. The checksum kernel
+    (:func:`bevy_ggrs_tpu_torch.ops.checksum.world_checksum`) computes the
+    same bits."""
     h = _seed_rows(state.capacity, state.device)
     for _, words in _slot_words(state):
         for w in words:
@@ -537,22 +538,23 @@ def ring_init(state: WorldState, depth: int) -> SnapshotRing:
 
 
 def ring_save(
-    ring: SnapshotRing, state: WorldState, frame: int
+    ring: SnapshotRing, state: WorldState, frame: int,
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[SnapshotRing, torch.Tensor]:
-    """Save ``state`` as frame ``frame``; returns ``(ring, checksum)``.
+    """Save ``state`` as frame ``frame``; returns ``(ring, checksum)``,
+    the checksum a tensor of its own (never a view of ``ring.checksums``,
+    which a later save into the same row rewrites), also written to
+    ``out`` (``int64[2]``) when given.
 
     Updates ``ring`` in place and returns it: no caller keeps an older
-    ring. The checksum comes from
-    :func:`bevy_ggrs_tpu_torch.ops.checksum.checksum`, the checksum kernel
-    for a CUDA state and its plain version for a CPU state."""
-    from bevy_ggrs_tpu_torch.ops.checksum import checksum as kernel_checksum
+    ring. ``state`` must not share memory with the ring. For a CUDA state
+    this is one launch of the checksum kernel in its save mode
+    (:func:`bevy_ggrs_tpu_torch.ops.checksum.world_checksum`): the bytes,
+    the frame and the digest of the row in one pass; a CPU state takes its
+    plain version."""
+    from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
 
-    slot = int(frame) % ring.depth
-    cs = kernel_checksum(state)
-    tree_map(lambda r, s: r[slot].copy_(s), ring.states, state)
-    ring.frames[slot] = int(frame)
-    ring.checksums[slot] = cs
-    return ring, cs
+    return ring, world_checksum(state, "save", ring=ring, frame=frame, out=out)
 
 
 def ring_load(ring: SnapshotRing, frame: int) -> WorldState:

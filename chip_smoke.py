@@ -8,9 +8,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. Device and build: the card's name and power limit, then the five CUDA
    kernels built from ``bevy_ggrs_tpu_torch/csrc`` (one ``nvcc`` each, all
    started together), with ptxas's register and shared-memory report.
-2. Checksum kernel against its plain version on the card: random worlds
-   (bool/u8/i32/f32 components, more than 64 words a slot, ragged
-   capacities), single worlds and stacked ring rows, bitwise.
+2. Checksum kernel against its plain versions on the card, bitwise, in
+   its three modes: random worlds (bool, u8, i16, f16, i32, f32, i64 and
+   f64 components, more than 64 words a slot, nested resources with 2-
+   and 8-byte leaves) at capacities 37, 600, 1,000, 1,024, 32,768 and
+   40,000 (clusters of 1 and 8 blocks), as single worlds, a ``[5]`` ring
+   and a ``[2, 5]`` stack; the save mode's ring rows, frames, digests and
+   output; the guard on a clean row, a corrupted one and a frame that is
+   not resident; a component that is not slot-major (copied by the
+   wrapper, the copy counted); a world of 202 parts, and one of 302
+   refused. Under
+   ``torch.profiler``, ``ring_save``, ``checksum`` and ``verify_row`` each
+   run one CUDA kernel and no host-to-device copy.
 3. Force kernel against its plain version on the card: N in {1000, 1024,
    4096}, a row subset, a single row, five rows, 20 boids (fewer than a
    warp's 32 lanes) and 4,100 (a ragged last column tile and row block),
@@ -18,10 +27,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    equal to the first.
 4. box_game SyncTest on ``cuda`` through ``GGRSPlugin``: 2 players,
    ``check_distance`` 7, 300 frames, no ``MismatchedChecksum``, and its
-   checksum stream bitwise equal to the same run's on the CPU.
+   checksum stream bitwise equal to the same run's on the CPU; the
+   checksum kernel ran exactly once per save and once per restore guard.
 5. boids SyncTest on ``cuda``: a 1,024-boid flock, 2 players,
    ``check_distance`` 7, 120 frames, no mismatch; the force kernel ran once
-   per advanced frame and the checksum kernel at least once per save. Its
+   per advanced frame and the checksum kernel once per save and guard. Its
    first frames agree with the plain CPU path within ``atol=1e-5``.
 6. Tensor-core force kernels against their plain versions on the card,
    on spawn-spiral flocks with every 7th boid inactive: the general kernel
@@ -46,15 +56,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    mismatch: 1,024 boids with ``kernel="mxu"`` (120 frames, the general
    tensor-core kernel), 4,096 with ``kernel="mxu"`` (60 frames, the
    triangle) and 32,768 with ``kernel="mxu", mode="grid"`` (60 frames, the
-   cell kernel). The path's kernel ran once per advanced frame and no other
-   force kernel ran; one step agrees with the plain version (on the CPU
+   cell kernel). The path's kernel ran once per advanced frame, no other
+   force kernel ran, and the checksum kernel ran once per save and guard
+   (the contiguity copies its wrapper made are printed); one step agrees with the plain version (on the CPU
    for the dense runs, on the card for the grid) within ``1e-4``, as the
    JAX suite holds one mxu step; the
    grid's statistics are printed at the first and the last frame.
 9. Times with CUDA events: each kernel and its plain version at the main
    path's shapes, on the device alone (a CUDA graph of many calls,
    replayed) and per call with the host's work, beside the least time the
-   card could take for the same work; the main path's pieces around the
+   card could take for the same work (the checksum in each of its three
+   modes, at 1,024 and at 32,768 boids); the main path's pieces around the
    kernels; the triangle's tile pass and combine apart (device time under
    ``torch.profiler``); the per-tick times of phases 4, 5 and 8; and, under
    ``torch.profiler``, the device's busy time per tick of the boids
@@ -183,7 +195,16 @@ COMPONENTS = {  # name -> (shape, numpy dtype, torch dtype)
     "hp": ((), np.int32, torch.int32),
     "pos": ((2,), np.float32, torch.float32),
     "grid": ((70,), np.float32, torch.float32),
+    "short": ((2,), np.int16, torch.int16),
+    "half": ((), np.float16, torch.float16),
+    "long": ((), np.int64, torch.int64),
+    "double": ((2,), np.float64, torch.float64),
 }
+# Capacities: ragged, the main path's 1,024, one block's limit passed
+# (1,000 against 1,024 threads), the grid world's 32,768 (a cluster of 8,
+# four slots a thread) and 40,000 (the largest cluster, a second chunk).
+CHECKSUM_CAPS = (37, 600, 1000, 1024, 32768, 40000)
+CHECKSUM_DEPTH, CHECKSUM_STACK = 5, 2
 
 
 def random_registry(ts):
@@ -192,7 +213,9 @@ def random_registry(ts):
         reg.register_component(name, shape, tdt)
     reg.register_resource("frame_count", np.uint32(0))
     reg.register_resource("multi", {"a": np.zeros(3, np.float32),
-                                    "b": (np.int32(0), np.zeros((2, 2), bool))})
+                                    "b": (np.int32(0), np.zeros((2, 2), bool)),
+                                    "c": np.zeros(2, np.int16)})
+    reg.register_resource("wide", np.zeros(2, np.int64))
     return reg
 
 
@@ -203,8 +226,8 @@ def random_host(seed: int, cap: int) -> dict:
     for name, (shape, dt, _) in COMPONENTS.items():
         if dt == np.bool_:
             comps[name] = rng.rand(cap, *shape) < 0.5
-        elif dt == np.float32:
-            comps[name] = rng.randn(cap, *shape).astype(np.float32)
+        elif np.issubdtype(dt, np.floating):
+            comps[name] = rng.randn(cap, *shape).astype(dt)
         else:
             info = np.iinfo(dt)
             comps[name] = rng.randint(info.min, info.max, size=(cap,) + shape,
@@ -220,32 +243,164 @@ def random_host(seed: int, cap: int) -> dict:
             "frame_count": np.array(rng.randint(0, 2**32, dtype=np.int64), np.uint32),
             "multi": {"a": rng.randn(3).astype(np.float32),
                       "b": (np.array(rng.randint(-100, 100), np.int32),
-                            rng.rand(2, 2) < 0.5)},
+                            rng.rand(2, 2) < 0.5),
+                      "c": rng.randint(-2**15, 2**15, size=2).astype(np.int16)},
+            "wide": rng.randint(-2**62, 2**62, size=2, dtype=np.int64),
         },
     }
 
 
-def check_checksum_kernel(ts, tck) -> None:
+def same_bytes(a, b) -> bool:
+    """Two tensors with the same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def world_leaves(ts, state) -> list:
+    """Every tensor of a world state."""
+    return ts.tree_leaves([state.alive, state.rollback_id, state.components,
+                           state.present, state.resources])
+
+
+def clone_ring(ts, ring):
+    return ts.SnapshotRing(states=ts.tree_map(torch.clone, ring.states),
+                           frames=ring.frames.clone(), checksums=ring.checksums.clone())
+
+
+def check_checksum_kernel(ts, tck, integrity) -> None:
+    """The kernel against its plain versions, bitwise, in all three modes."""
     reg = random_registry(ts)
-    depth = 9
-    for cap in (37, 600, 1000, 1024):
-        hosts = [random_host(seed, cap) for seed in range(depth)]
-        cpu = [ts.from_host(reg, h, device="cpu") for h in hosts]
+    depth, S = CHECKSUM_DEPTH, CHECKSUM_STACK
+    for cap in CHECKSUM_CAPS:
+        hosts = [random_host(1000 * cap + seed, cap) for seed in range(S * depth)]
         gpu = [ts.from_host(reg, h, device="cuda") for h in hosts]
-        W = tck._word_matrix(gpu[0]).shape[1]
-        for c, g in zip(cpu, gpu):  # B = 1
-            want = ts.checksum(c)
-            got = tck.checksum(g).cpu()
-            check(torch.equal(got, want), f"checksum cap={cap}: {got} != {want}")
-        stacked = ts.tree_map(lambda *xs: torch.stack(xs), *gpu)  # B = depth
-        words, alive = tck._word_matrix(stacked), stacked.alive.view(torch.uint8)
-        got = tck.entity_hash_sum(words, alive).cpu()
-        want = tck._entity_hash_sum_plain(words.cpu(), alive.cpu())
-        check(torch.equal(got, want), f"checksum cap={cap}: ring rows")
-        check(torch.equal(tck.checksum(stacked).cpu(),
-                          torch.stack([ts.checksum(c) for c in cpu])),
-              f"checksum cap={cap}: stacked worlds")
-        print(f"checksum cap={cap} W={W} B=1 and B={depth}: bitwise equal")
+        lay = tck.layout(gpu[0])
+        for h, g in zip(hosts[:2], gpu[:2]):  # B = 1, against the cpu too
+            got = tck.checksum(g)
+            check(torch.equal(got, tck.checksum_plain(g)), f"checksum cap={cap}: B=1")
+            check(torch.equal(got.cpu(), ts.checksum(ts.from_host(reg, h, device="cpu"))),
+                  f"checksum cap={cap}: B=1 against the cpu")
+        ring_rows = ts.tree_map(lambda *xs: torch.stack(xs), *gpu[:depth])
+        check(torch.equal(tck.checksum(ring_rows), tck.checksum_plain(ring_rows)),
+              f"checksum cap={cap}: a [{depth}] ring")
+        stack = ts.tree_map(lambda *xs: torch.stack(xs).reshape((S, depth) + xs[0].shape), *gpu)
+        check(torch.equal(tck.checksum(stack), tck.checksum_plain(stack)),
+              f"checksum cap={cap}: an [{S}, {depth}] stack")
+        # Save mode: rows, frames, digests and the caller's out against the
+        # plain sequence on a twin ring; two rounds over the rows.
+        ring = ts.ring_init(gpu[-1], depth)
+        twin = clone_ring(ts, ring)
+        outs = torch.zeros((2 * depth, 2), dtype=torch.int64, device="cuda")
+        twin_outs = outs.clone()
+        for frame in range(2 * depth):
+            w = gpu[frame % len(gpu)]
+            _, got = ts.ring_save(ring, w, frame, out=outs[frame])
+            want = tck.save_plain(twin, w, frame, out=twin_outs[frame])
+            check(torch.equal(got, want), f"save cap={cap} frame={frame}: lanes")
+        check(all(same_bytes(a, b) for a, b in zip(world_leaves(ts, ring.states),
+                                                   world_leaves(ts, twin.states))),
+              f"save cap={cap}: ring rows")
+        check(torch.equal(ring.frames, twin.frames) and torch.equal(ring.checksums, twin.checksums)
+              and torch.equal(outs, twin_outs), f"save cap={cap}: frames, digests, out")
+        # Guard mode: clean, corrupted and not resident.
+        frame = 2 * depth - 2
+        row = frame % depth
+        clean = integrity.verify_row(ring, frame)
+        corrupt, info = integrity.flip_ring_bit(ring, row, np.random.RandomState(cap))
+        flagged = integrity.verify_row(corrupt, frame)
+        stale = integrity.verify_row(corrupt, frame - depth)
+        check(clean and not flagged and stale,
+              f"guard cap={cap}: clean {clean}, corrupt {flagged} ({info}), not resident {stale}")
+        for r, f in ((ring, frame), (corrupt, frame), (corrupt, frame - depth)):
+            check(torch.equal(tck.world_checksum(None, "guard", ring=r, frame=f),
+                              tck.guard_plain(r, f)), f"guard cap={cap} frame={f}: plain")
+        # A part that is not slot-major is copied (and counted), and the
+        # copy lives until the launch has read it.
+        strided = gpu[0].replace(components={
+            **gpu[0].components, "pos": gpu[0].components["pos"].t().contiguous().t()})
+        copies = tck.world_checksum.copies
+        ring = ts.ring_init(gpu[0], depth)
+        twin = clone_ring(ts, ring)
+        check(torch.equal(tck.checksum(strided), tck.checksum_plain(gpu[0]))
+              and torch.equal(ts.ring_save(ring, strided, 1)[1], tck.save_plain(twin, gpu[0], 1))
+              and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, ring.states),
+                                                       world_leaves(ts, twin.states))),
+              f"checksum cap={cap}: a part that is not slot-major")
+        check(tck.world_checksum.copies == copies + 2, f"checksum cap={cap}: contiguity copies")
+        P, threads = tck.launch_shape(cap)
+        print(f"checksum cap={cap} parts={len(lay.parts)} cluster {P} x {threads} threads: "
+              f"B=1, a [{depth}] ring, an [{S}, {depth}] stack, save (ring rows, frames, "
+              f"digests, out), guard (clean, corrupt {info['field']}, not resident), a "
+              f"part that is not slot-major (copied): bitwise equal to the plain version")
+
+
+def check_many_parts(ts, tck) -> None:
+    """Worlds of 202 parts (the largest parameter struct) and of 302 (over
+    the limit, refused on the card)."""
+    rng = np.random.RandomState(7)
+    kinds = [(torch.int8, np.int8), (torch.int16, np.int16), (torch.float32, np.float32),
+             (torch.int64, np.int64)]
+    for n_comps, fits in ((100, True), (150, False)):
+        reg = ts.TypeRegistry()
+        for i in range(n_comps):
+            reg.register_component(f"c{i:03d}", (1 + i % 3,), kinds[i % 4][0])
+        host = ts.to_host(ts.init_state(reg, 37, device="cpu"))
+        host["alive"][:] = rng.rand(37) < 0.8
+        for i, name in enumerate(sorted(host["components"])):
+            a = host["components"][name]
+            host["components"][name] = rng.randint(-100, 100, size=a.shape).astype(a.dtype)
+            host["present"][name][:] = rng.rand(37) < 0.5
+        world = ts.from_host(reg, host, device="cuda")
+        if not fits:
+            try:
+                tck.checksum(world)
+            except ValueError as e:
+                check(f"limit of {tck.MAX_PARTS}" in str(e), f"over the limit: {e}")
+                print(f"a world of {2 * n_comps + 2} parts is refused on the card: {e}")
+                continue
+            check(False, f"a world of {2 * n_comps + 2} parts was not refused")
+        ring_rows = ts.tree_map(lambda x: torch.stack([x, x.flip(0)]), world)
+        check(torch.equal(tck.checksum(world), tck.checksum_plain(world))
+              and torch.equal(tck.checksum(ring_rows), tck.checksum_plain(ring_rows)),
+              f"checksum of {len(tck.layout(world).parts)} parts")
+        check(torch.equal(tck.checksum(world).cpu(), ts.checksum(ts.from_host(reg, host, device="cpu"))),
+              "checksum of many parts against the cpu")
+        print(f"checksum of {len(tck.layout(world).parts)} parts (cap 37, B=1 and B=2): "
+              f"bitwise equal to the plain version and the cpu")
+
+
+def device_work(fn) -> dict:
+    """The CUDA kernels and copies one call of ``fn`` runs, under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels": [n for n in names if not n.startswith(("Memcpy", "Memset"))],
+            "h2d": [n for n in names if "HtoD" in n],
+            "d2h": [n for n in names if "DtoH" in n]}
+
+
+def check_one_launch(ts, tck, integrity, boids) -> None:
+    """``ring_save``, ``checksum`` and ``verify_row`` each run one CUDA
+    kernel and copy nothing to the device; the guard reads back 4 bytes."""
+    state = boids.make_world(1024, 2, device="cuda").commit()
+    ring = ts.ring_init(state, 9)
+    ts.ring_save(ring, state, 3)
+    for name, fn, d2h in (("ring_save", lambda: ts.ring_save(ring, state, 3), 0),
+                          ("checksum", lambda: tck.checksum(state), 0),
+                          ("verify_row", lambda: integrity.verify_row(ring, 3), 1)):
+        work = device_work(fn)
+        check(len(work["kernels"]) == 1 and not work["h2d"] and len(work["d2h"]) == d2h,
+              f"{name} under the profiler: {work}")
+        print(f"{name} (boids-1,024) under torch.profiler: 1 CUDA kernel "
+              f"({work['kernels'][0][:60]}), 0 host-to-device copies, "
+              f"{len(work['d2h'])} device-to-host copies"
+              + (" (the guard's int32 flag, 4 bytes)" if d2h else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +842,53 @@ def device_busy(app, ticks: int = 8) -> dict:
 def reset_counts(kernels) -> None:
     for fn in kernels:
         fn.launches = 0
+        if hasattr(fn, "copies"):
+            fn.copies = 0
+
+
+def check_checksum_launches(label: str, tck, launches: dict, log: dict, runner) -> str:
+    """The checksum kernel ran exactly once per save and once per restore
+    guard (one per rollback); returns the line's words on it."""
+    guards = runner.rollbacks_total if runner.verify_restores else 0
+    got = launches["world_checksum"]
+    check(got == log["saves"] + guards,
+          f"{label}: {got} checksum launches, {log['saves']} saves + {guards} guards")
+    return (f"checksum launches {got} = {log['saves']} saves + {guards} guards, "
+            f"contiguity copies {tck.world_checksum.copies}")
+
+
+def checksum_modes(ts, tck, integrity, state, depth: int) -> dict:
+    """Each mode's device milliseconds a call (a CUDA graph of many calls,
+    replayed), milliseconds a call with the host's work (CUDA events; the
+    guard's includes its 4-byte read), and the least time the card could
+    take: the world's own bytes (read once; a save writes them again) over
+    the memory rate, or the hash's integer operations over live slots and
+    resource words at the int32 rate, whichever is larger."""
+    lay = tck.layout(state)
+    nbytes = sum(p.row_bytes for p in lay.parts)
+    words = sum(p.words for p in lay.parts if p.role not in (tck.ALIVE, tck.RESOURCE))
+    ops = (int(state.alive.sum()) * (words * CHECKSUM_OPS_PER_WORD + FMIX_OPS)
+           + lay.resource_words * (CHECKSUM_OPS_PER_WORD + FMIX_OPS))
+    ring = ts.ring_init(state, depth)  # a scratch ring: the session's is not touched
+    frame = 3
+    ts.ring_save(ring, state, frame)
+    modes = {
+        # (device call, call with the host's work, bytes moved)
+        "checksum": (lambda: tck.checksum(state), lambda: tck.checksum(state), nbytes + 16),
+        "save": (lambda: ts.ring_save(ring, state, frame), lambda: ts.ring_save(ring, state, frame),
+                 2 * nbytes + 2 * 16 + 4),
+        "guard": (lambda: tck.world_checksum(None, "guard", ring=ring, frame=frame),
+                  lambda: integrity.verify_row(ring, frame), nbytes + 16 + 4 + 4),
+    }
+    out = {"state_bytes": nbytes, "ops": ops}
+    for mode, (device_fn, call_fn, moved) in modes.items():
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_I32_PER_S * 1e3
+        out[mode] = {"ms": graph_ms(device_fn), "call_ms": cuda_ms(call_fn),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": moved}
+    check(integrity.verify_row(ring, frame), "the timed guard found its row corrupt")
+    return out
 
 
 def tick_stats(ticks):
@@ -703,6 +905,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from bevy_ggrs_tpu_torch import integrity
     from bevy_ggrs_tpu_torch import state as ts
     from bevy_ggrs_tpu_torch.app import SessionType
     from bevy_ggrs_tpu_torch.models import boids, box_game
@@ -720,7 +923,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     force_kernels = (tpw.pairwise_force_rows, tpw.pairwise_force_rows_mxu2,
                      tpw.pairwise_force_square_mxu_tri, tcg.cell_slot_forces)
-    kernels = (tck.entity_hash_sum,) + force_kernels
+    kernels = (tck.world_checksum,) + force_kernels
     params = boids._kernel_params()
 
     phase("1 device and build")
@@ -739,7 +942,9 @@ def main() -> int:
             if "Used" in line or "spill" in line))
 
     phase("2 checksum kernel against its plain version")
-    check_checksum_kernel(ts, tck)
+    check_checksum_kernel(ts, tck, integrity)
+    check_many_parts(ts, tck)
+    check_one_launch(ts, tck, integrity, boids)
 
     phase("3 force kernel against its plain version")
     force_err = check_force_kernel(tpw, params)
@@ -763,11 +968,11 @@ def main() -> int:
     check(np.isfinite(world["components"]["translation"]).all(), "box_game: not finite")
     check(int(world["resources"]["frame_count"]) == frames, "box_game: frame_count")
     check(box_app_gpu.stage.runner.rollbacks_total == frames - 7, "box_game: rollbacks")
-    check(box_launches["entity_hash_sum"] >= logs["cuda"]["saves"],
-          f"box_game: checksum launches {box_launches}")
+    box_checksums = check_checksum_launches("box_game", tck, box_launches, logs["cuda"],
+                                            box_app_gpu.stage.runner)
     print(f"box_game: {frames} frames, {logs['cuda']['saves']} saves, "
           f"{len(logs['cuda']['checksums'])} checksums bitwise equal to the cpu's, "
-          f"launches {box_launches}")
+          f"launches {box_launches}, {box_checksums}")
 
     phase("5 boids SyncTest on cuda (N=1024)")
     n, frames = 1024, 120
@@ -791,10 +996,10 @@ def main() -> int:
     check(pos.shape == (n, 2) and np.isfinite(pos).all(), "boids: positions")
     check(boids_launches["pairwise_force_rows"] == boids_log["advances"],
           f"boids: force launches {boids_launches}, {boids_log['advances']} advances")
-    check(boids_launches["entity_hash_sum"] >= boids_log["saves"],
-          f"boids: checksum launches {boids_launches}")
+    boids_checksums = check_checksum_launches("boids", tck, boids_launches, boids_log,
+                                              flock.stage.runner)
     print(f"boids: {frames} frames, {boids_log['advances']} advances, "
-          f"{boids_log['saves']} saves, launches {boids_launches}")
+          f"{boids_log['saves']} saves, launches {boids_launches}, {boids_checksums}")
 
     phase("6 tensor-core force kernels against their plain versions")
     mxu_err = check_mxu_kernels(tpw, boids, params)
@@ -842,35 +1047,46 @@ def main() -> int:
               f"{label}: {fn.__name__} launches {launches}, {log['advances']} advances")
         check(all(launches[k.__name__] == 0 for k in force_kernels if k is not fn),
               f"{label}: another force kernel ran: {launches}")
-        check(launches["entity_hash_sum"] >= log["saves"], f"{label}: checksum launches")
+        checksums = check_checksum_launches(label, tck, launches, log, app.stage.runner)
         if mode == "grid":
             active = state.alive & state.present["position"]
             print(f"{label} grid_stats last frame: "
                   + json.dumps(tnb.grid_stats(state.components["position"], active, config)))
         print(f"{label}: {frames} frames, {log['advances']} advances, {log['saves']} saves, "
-              f"no mismatch, launches {launches}, ticks {json.dumps(tick_stats(ticks))}")
+              f"no mismatch, launches {launches}, {checksums}, "
+              f"ticks {json.dumps(tick_stats(ticks))}")
         scale[label] = {"app": app, "log": log, "ticks": ticks, "launches": launches}
 
     phase("9 times")
+    # The checksum in its three modes at the main path's shape (one boids
+    # world, 1,024 slots, 9 parts) and at the grid world's (32,768 slots, a
+    # cluster of 8 blocks).
     state = flock.stage.runner.state
-    # Checksum at the main path's shape: one boids world, cap 1,024 x W 9.
-    words = tck._word_matrix(state)
-    alive = state.alive.reshape(1, -1).view(torch.uint8)
-    B, W, cap = words.shape
-    runs = [boids_launches] + [r["launches"] for r in scale.values()]
+    runs = [box_launches, boids_launches] + [r["launches"] for r in scale.values()]
+    modes = checksum_modes(ts, tck, integrity, state, flock.stage.runner.ring.depth)
+    grid_runner = scale["boids32768_grid"]["app"].stage.runner
+    modes_grid = checksum_modes(ts, tck, integrity, grid_runner.state, grid_runner.ring.depth)
+    plain_ms = cuda_ms(lambda: tck.checksum_plain(state), iters=20)
+    for label, m in (("boids-1024", modes), ("boids-32768", modes_grid)):
+        for mode in ("checksum", "save", "guard"):
+            print(f"world_checksum {mode} {label} ({m['state_bytes']} state bytes, "
+                  f"{m['ops']} ops): device {m[mode]['ms']:.6f} ms (graph replay), per call "
+                  f"with host work {m[mode]['call_ms']:.6f} ms, bound {m[mode]['bound_ms']:.7f} ms "
+                  f"({m[mode]['bound_by']}: {m[mode]['bytes']} bytes)")
+    print(f"world_checksum plain version (checksum mode, boids-1024): {plain_ms:.6f} ms a call")
     ck = {
-        "name": "entity_hash_sum", "route": "cuda",
+        "name": "world_checksum", "route": "cuda",
         "source": "bevy_ggrs_tpu_torch/csrc/checksum.cu",
         "replaces": "bevy_ggrs_tpu/ops/checksum.py:95",
-        "launches": box_launches["entity_hash_sum"] + sum(r["entity_hash_sum"] for r in runs),
+        "launches": sum(r["world_checksum"] for r in runs),
         "max_abs_err": 0.0,
-        **timings(
-            f"checksum B={B} W={W} cap={cap}",
-            lambda: tck.entity_hash_sum(words, alive),
-            lambda: tck._entity_hash_sum_plain(words, alive),
-            nbytes=words.numel() * 4 + alive.numel() + B * 2 * 4,
-            ops=B * cap * (W * CHECKSUM_OPS_PER_WORD + FMIX_OPS),
-            peak_ops=PEAK_I32_PER_S),
+        "ms": modes["checksum"]["ms"], "plain_ms": plain_ms,
+        "bound_ms": modes["checksum"]["bound_ms"], "bound_by": modes["checksum"]["bound_by"],
+        "library_ms": None,
+        "modes": {mode: {k: modes[mode][k] for k in ("ms", "call_ms", "bound_ms")}
+                  for mode in ("checksum", "save", "guard")},
+        "modes_boids32768": {mode: {k: modes_grid[mode][k] for k in ("ms", "call_ms", "bound_ms")}
+                             for mode in ("checksum", "save", "guard")},
     }
     forces = {}
     for n_boids in (1024, 4096):
@@ -977,10 +1193,13 @@ def main() -> int:
         ("boids32768_grid", scale["boids32768_grid"]["app"],
          boids.make_schedule(kernel="mxu", mode="grid")),
     ):
-        s_, ring = app.stage.runner.state, app.stage.runner.ring
+        s_ = app.stage.runner.state
+        ring = ts.ring_init(s_, app.stage.runner.ring.depth)  # scratch: the session's untouched
+        ts.ring_save(ring, s_, 0)
         iters = 20 if label == "boids32768_grid" else 50
         pieces[f"{label}_checksum_ms"] = cuda_ms(lambda: tck.checksum(s_), iters=iters)
         pieces[f"{label}_ring_save_ms"] = cuda_ms(lambda: ts.ring_save(ring, s_, 0), iters=iters)
+        pieces[f"{label}_guard_ms"] = cuda_ms(lambda: integrity.verify_row(ring, 0), iters=iters)
         pieces[f"{label}_ring_load_ms"] = cuda_ms(lambda: ts.ring_load(ring, 0), iters=iters)
         pieces[f"{label}_step_ms"] = cuda_ms(lambda: schedule(s_, inputs), iters=iters)
     # The grid step's own pieces.

@@ -97,10 +97,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 def test_wrappers_launch_or_raise_off_the_cpu():
     """A tensor that is not on the CPU never takes the plain version."""
-    words = torch.zeros((1, 3, 8), dtype=torch.int32, device="meta")
-    alive = torch.zeros((1, 8), dtype=torch.uint8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        tck.entity_hash_sum(words, alive)
+    world = ts.init_state(tbox.make_registry(), 8, device="meta")
+    ring = ts.SnapshotRing(
+        states=ts.tree_map(lambda x: x[None].expand((2,) + x.shape), world),
+        frames=torch.zeros((2,), dtype=torch.int32, device="meta"),
+        checksums=torch.zeros((2, 2), dtype=torch.int64, device="meta"))
+    for call in (lambda: tck.world_checksum(world),
+                 lambda: tck.world_checksum(world, "save", ring=ring, frame=0),
+                 lambda: tck.world_checksum(None, "guard", ring=ring, frame=0)):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
     pos = torch.zeros((8, 2), device="meta")
     act = torch.zeros((8,), device="meta")
     params = tboids._kernel_params()

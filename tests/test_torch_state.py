@@ -128,17 +128,26 @@ def test_entity_hash_sum_over_ring_rows_equals_each_row():
 
 
 def test_kernel_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
+    """Each mode of the kernel's wrapper takes its plain version for a CPU
+    world, counts no launch, and refuses arguments its mode does not
+    take."""
     w = torch_world(random_host(0, 37))
-    words = tck._word_matrix(w)
-    alive = w.alive.reshape(1, -1).view(torch.uint8)
-    before = tck.entity_hash_sum.launches
-    out = tck.entity_hash_sum(words, alive)
-    assert out.dtype == torch.int32 and out.shape == (1, 2)
-    assert tck.entity_hash_sum.launches == before  # no kernel on the CPU
+    ring = ts.ring_init(w, 3)
+    before = tck.world_checksum.launches
+    out = tck.world_checksum(w)
+    assert out.dtype == torch.int64 and out.shape == (2,)
+    assert torch.equal(out, ts.checksum(w))
+    saved = tck.world_checksum(w, "save", ring=ring, frame=4)
+    assert torch.equal(saved, out) and int(ring.frames[1]) == 4
+    flag = tck.world_checksum(None, "guard", ring=ring, frame=4)
+    assert flag.dtype == torch.int32 and flag.tolist() == [1]
+    assert tck.world_checksum.launches == before  # no kernel on the CPU
     with pytest.raises(ValueError):
-        tck.entity_hash_sum(words.to(torch.int64), alive)
+        tck.world_checksum(w, "hash")
     with pytest.raises(ValueError):
-        tck.entity_hash_sum(words, alive[:, :-1])
+        tck.world_checksum(w, "save")  # no ring
+    with pytest.raises(ValueError):
+        tck.world_checksum(w, "guard", ring=ring)  # a state it does not take
 
 
 @pytest.mark.parametrize("cap", CAPACITIES)

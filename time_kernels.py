@@ -22,11 +22,23 @@ force kernel (``pairwise_force_rows``) and the general tensor-core kernel
 milliseconds a call (a CUDA graph of many calls, replayed), its
 milliseconds a call with the host's work, the largest difference from its
 plain version on the same inputs, and the SHA-256 of its output's bytes,
-so that two trees' outputs can be compared bit for bit. Only the
-wrappers' public signatures are used, so any tree of the port since they
-were written runs. The last lines are the mean of each tree's turns,
-whether each kernel's output bits were the same in every turn of every
-tree, and the card's name and power limit. Without CUDA it exits 1.
+so that two trees' outputs can be compared bit for bit.
+
+Beside them, the checksum through the three calls every tree since the
+first shares (``ops.checksum.checksum(state)``, ``state.ring_save(ring,
+state, 0)`` and ``integrity.verify_row(ring, 0)``) on the boids-1,024
+world and the boids-32,768 grid world, each with its milliseconds a call
+(CUDA events, the host's work included), its device milliseconds a call
+(the sum of the device intervals ``torch.profiler`` records, kernels and
+copies: an older tree's calls copy from the host, which keeps them out of
+a CUDA graph), its kernels and host-to-device copies a call, and the
+SHA-256 of the lanes, or of the saved ring row with its frame and digest,
+and whether the lanes equal the plain ``state.checksum``.
+
+Only public signatures are used, so any tree of the port since they were
+written runs. The last lines are the mean of each tree's turns, whether
+each output's bits were the same in every turn of every tree, and the
+card's name and power limit. Without CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -61,8 +73,58 @@ def timed(cs, kernel, got, want) -> dict:
     }
 
 
+def profiled(fn, calls: int = 50) -> dict:
+    """Device milliseconds, kernels and host-to-device copies a call of
+    ``fn`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {
+        "device_ms": sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / calls,
+        "kernels_per_call": sum(not e.name.startswith(("Memcpy", "Memset"))
+                                for e in events) / calls,
+        "h2d_per_call": sum("HtoD" in e.name for e in events) / calls,
+    }
+
+
+def checksum_calls(cs, boids, n: int) -> dict:
+    """The checksum, a ring save and a restore guard on a boids-``n``
+    world, through the calls every tree of the port shares."""
+    import torch
+
+    from bevy_ggrs_tpu_torch import integrity
+    from bevy_ggrs_tpu_torch import state as ts
+    from bevy_ggrs_tpu_torch.ops import checksum as ck
+
+    state = boids.make_world(n, 2, device="cuda").commit()
+    ring = ts.ring_init(state, 9)
+    ts.ring_save(ring, state, 0)
+    lanes = ck.checksum(state)
+    st = ring.states
+    leaves = ts.tree_leaves([st.alive, st.rollback_id, st.components, st.present, st.resources])
+    row = [t[0] for t in leaves] + [ring.frames[:1], ring.checksums[0]]
+    out = {}
+    for name, fn, digest in (
+        ("checksum", lambda: ck.checksum(state), sha256(lanes)),
+        ("ring_save", lambda: ts.ring_save(ring, state, 0), sha256(*row)),
+        ("verify_row", lambda: integrity.verify_row(ring, 0),
+         sha256(torch.tensor([integrity.verify_row(ring, 0)]))),
+    ):
+        out[f"{name}_boids{n}"] = {**profiled(fn), "call_ms": cs.cuda_ms(fn), "sha256": digest}
+    out[f"checksum_boids{n}"]["equals_state_checksum"] = bool((lanes == ts.checksum(state)).all())
+    return out
+
+
 def measure(tree: pathlib.Path) -> dict:
-    """Import the port from ``tree`` and time its four force kernels."""
+    """Import the port from ``tree`` and time its four force kernels and
+    its checksum."""
     import torch
 
     import chip_smoke as cs  # this checkout's timing helpers
@@ -114,6 +176,8 @@ def measure(tree: pathlib.Path) -> dict:
                 tcg.cell_slot_forces_plain(fk, rowvals, colvals)),
         "live_pairs": cs.live_pairs(rowvals, colvals),
     }
+    for n in (1024, 32768):
+        out.update(checksum_calls(cs, boids, n))
     return out
 
 
