@@ -1,9 +1,11 @@
 """bevy_ggrs_tpu_torch: the rollback engine of ``bevy_ggrs_tpu`` in PyTorch,
 with its TPU kernels rewritten by hand in CUDA for NVIDIA Hopper.
 
-This package runs the SyncTest rollback loop on box_game and on dense
-boids flocks. It imports ``torch`` and ``numpy`` only; its entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``.
+This package runs SyncTest, P2P and spectator sessions on box_game and on
+boids flocks (dense, and the neighbour grid). Its wire protocol is byte for
+byte the JAX package's, so a peer or spectator of either package plays in
+one session with the other's. It imports ``torch`` and ``numpy`` only; its
+entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from bevy_ggrs_tpu_torch.state import (

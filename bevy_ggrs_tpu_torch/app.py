@@ -10,11 +10,13 @@ Counterpart of ``bevy_ggrs_tpu/app.py``:
   :class:`SessionType`, the stage, and render systems that run outside
   the rollback domain.
 - :class:`GGRSStage` — the per-render-frame driver: wall-clock
-  accumulation into fixed simulation steps, each step dispatched on the
-  session flavor, and a reset when the session is removed.
+  accumulation into fixed simulation steps, ×1.1 frame-period stretch
+  while ahead of peers, the session's network pumped every render frame,
+  each step dispatched on the session flavor, and a reset when the
+  session is removed.
 
-This part of the port runs SyncTest sessions. P2P and spectator sessions,
-speculation and meshes belong to later parts (see ROADMAP.md) and raise
+The stage runs SyncTest, P2P and spectator sessions. Speculation and
+meshes belong to later parts (see ROADMAP.md) and raise
 ``NotImplementedError``.
 """
 
@@ -29,6 +31,13 @@ import torch
 
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
 from bevy_ggrs_tpu_torch.schedule import InputSpec, Schedule
+from bevy_ggrs_tpu_torch.session.common import (
+    NotSynchronized,
+    PredictionThreshold,
+    SessionState,
+)
+from bevy_ggrs_tpu_torch.session.p2p import P2PSession
+from bevy_ggrs_tpu_torch.session.spectator import SpectatorSession
 from bevy_ggrs_tpu_torch.session.synctest import SyncTestSession
 from bevy_ggrs_tpu_torch.state import DEVICE_ID_BASE, HostWorld, TypeRegistry, WorldState
 from bevy_ggrs_tpu_torch.utils.metrics import null_metrics
@@ -81,11 +90,6 @@ class RollbackApp:
         self.events: List[object] = []
 
     def insert_session(self, session, session_type: SessionType) -> "RollbackApp":
-        if session_type != SessionType.SYNC_TEST:
-            raise NotImplementedError(
-                f"{session_type.value} sessions are not ported yet "
-                "(ROADMAP.md, port queue: 'P2P')"
-            )
         self.session = session
         self.session_type = session_type
         return self
@@ -183,11 +187,28 @@ class GGRSStage:
         if self.run_slow:
             fps_delta *= 1.1  # catch-up stretch
 
+        # Pump the network every render frame, unconditionally. Deferred
+        # checksum reports flush first: the session's send gate runs inside
+        # poll, and a frame's corrected re-report must reach the session
+        # before it may transmit that frame's checksum.
+        if app.session_type in (SessionType.P2P, SessionType.SPECTATOR):
+            flush = getattr(self.runner, "flush_reports", None)
+            if flush is not None:
+                flush(app.session)
+            with self.metrics.timer("poll"):
+                app.session.poll_remote_clients(now)
+            app.events.extend(app.session.events())
+
         self.accumulator += delta
         steps = 0
         while self.accumulator >= fps_delta:
             self.accumulator -= fps_delta
-            self._step_synctest(app)
+            if app.session_type == SessionType.SYNC_TEST:
+                self._step_synctest(app)
+            elif app.session_type == SessionType.P2P:
+                self._step_p2p(app)
+            elif app.session_type == SessionType.SPECTATOR:
+                self._step_spectator(app)
             steps += 1
         self.steps_total += steps
         return steps
@@ -197,6 +218,31 @@ class GGRSStage:
         for handle in session.local_player_handles():
             session.add_local_input(handle, self.input_system(handle, app))
         self.runner.handle_requests(session.advance_frame(), session)
+
+    def _step_p2p(self, app: RollbackApp) -> None:
+        session: P2PSession = app.session
+        if session.current_state() != SessionState.RUNNING:
+            return
+        self.run_slow = session.frames_ahead() > 0
+        for handle in session.local_player_handles():
+            session.add_local_input(handle, self.input_system(handle, app))
+        try:
+            requests = session.advance_frame()
+        except PredictionThreshold:
+            self.frames_skipped += 1  # too far past the peers: skip the step
+            return
+        self.runner.handle_requests(requests, session)
+
+    def _step_spectator(self, app: RollbackApp) -> None:
+        session: SpectatorSession = app.session
+        if session.current_state() != SessionState.RUNNING:
+            return
+        try:
+            requests = session.advance_frame()
+        except (PredictionThreshold, NotSynchronized):
+            self.frames_skipped += 1  # waiting for the host's inputs
+            return
+        self.runner.handle_requests(requests, session)
 
 
 class GGRSPlugin:

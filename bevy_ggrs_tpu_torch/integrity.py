@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from bevy_ggrs_tpu_torch.ops.checksum import checksum, world_checksum
-from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, tree_leaves
+from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, to_numpy, tree_leaves
 
 
 class StateFault(RuntimeError):
@@ -93,12 +93,6 @@ def warm(ring: SnapshotRing, state=None) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    # A copy: ``numpy()`` of a CPU tensor shares its memory, and the ring
-    # is updated in place by the repair these copies are compared across.
-    return t.cpu().numpy().copy()
-
-
 def host_row(ring: SnapshotRing, row: int, slot: Optional[int] = None):
     """Host copy of one ring row's registered fields, keyed in canonical
     order (rollback_id, alive, then present/component pairs, then resource
@@ -106,15 +100,15 @@ def host_row(ring: SnapshotRing, row: int, slot: Optional[int] = None):
     idx = (row,) if slot is None else (slot, row)
     st = ring.states
     out = {
-        "rollback_id": _np(st.rollback_id)[idx],
-        "alive": _np(st.alive)[idx],
+        "rollback_id": to_numpy(st.rollback_id)[idx],
+        "alive": to_numpy(st.alive)[idx],
     }
     for name in sorted(st.components):
-        out[f"present/{name}"] = _np(st.present[name])[idx]
-        out[f"component/{name}"] = _np(st.components[name])[idx]
+        out[f"present/{name}"] = to_numpy(st.present[name])[idx]
+        out[f"component/{name}"] = to_numpy(st.components[name])[idx]
     for name in sorted(st.resources):
         for j, leaf in enumerate(tree_leaves(st.resources[name])):
-            out[f"resource/{name}/{j}"] = _np(leaf)[idx]
+            out[f"resource/{name}/{j}"] = to_numpy(leaf)[idx]
     return out
 
 
@@ -142,21 +136,21 @@ def flip_ring_bit(ring: SnapshotRing, row: int, rng,
     idx = (row,) if slot is None else (slot, row)
     st = ring.states
     device = st.device
-    alive = _np(st.alive)[idx]
+    alive = to_numpy(st.alive)[idx]
     live = np.flatnonzero(alive)
     comp_names = []
     for name in sorted(st.components):
         if st.components[name].dtype == torch.bool:
             continue
-        pres = _np(st.present[name])[idx]
+        pres = to_numpy(st.present[name])[idx]
         if np.flatnonzero(pres & alive).size:
             comp_names.append(name)
     if live.size and comp_names and float(rng.random_sample()) < 0.5:
         name = comp_names[int(rng.randint(0, len(comp_names)))]
-        pres = _np(st.present[name])[idx]
+        pres = to_numpy(st.present[name])[idx]
         slots_ = np.flatnonzero(pres & alive)
         k = int(slots_[int(rng.randint(0, slots_.size))])
-        full = _np(st.components[name])
+        full = to_numpy(st.components[name])
         row_bytes = full[idx].reshape(full[idx].shape[0], -1)[k].view(np.uint8)
         b = int(rng.randint(0, row_bytes.size * 8))
         row_bytes[b // 8] ^= np.uint8(1 << (b % 8))
@@ -165,14 +159,14 @@ def flip_ring_bit(ring: SnapshotRing, row: int, rng,
         info = {"field": f"component/{name}", "entity": k, "bit": b}
     elif live.size:
         k = int(live[int(rng.randint(0, live.size))])
-        full = _np(st.rollback_id)
+        full = to_numpy(st.rollback_id)
         bit = int(rng.randint(0, 32))
         full.view(np.uint32)[idx + (k,)] ^= np.uint32(1 << bit)
         new = st.replace(rollback_id=torch.from_numpy(full).to(device))
         info = {"field": "rollback_id", "entity": k, "bit": bit}
     else:
         k = int(rng.randint(0, alive.shape[0]))
-        full = _np(st.alive)
+        full = to_numpy(st.alive)
         full[idx + (k,)] = ~full[idx + (k,)]
         new = st.replace(alive=torch.from_numpy(full).to(device))
         info = {"field": "alive", "entity": k, "bit": 0}

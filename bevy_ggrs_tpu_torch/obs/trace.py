@@ -27,5 +27,8 @@ class _NullTracer:
     def span(self, name: str, **args) -> _NullSpan:
         return self._span
 
+    def instant(self, name: str, **args) -> None:
+        pass
+
 
 null_tracer = _NullTracer()

@@ -25,7 +25,6 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from bevy_ggrs_tpu_torch import integrity
 from bevy_ggrs_tpu_torch.obs.ledger import null_ledger
@@ -43,7 +42,8 @@ from bevy_ggrs_tpu_torch.state import (
     WorldState,
     checksum_breakdown,
     combine64,
-    np_dtype,
+    from_numpy,
+    host_array,
     resolve_device,
     ring_frame_at,
     ring_init,
@@ -391,8 +391,9 @@ class RollbackRunner:
             if name not in comps:
                 raise KeyError(f"component {name!r} not registered")
             comps[name] = comps[name].clone()
-            comps[name][slot] = torch.as_tensor(
-                np.asarray(value, np_dtype(comps[name].dtype)))
+            comps[name][slot] = from_numpy(
+                host_array(value, comps[name].dtype), comps[name].dtype,
+                comps[name].device)
             pres[name] = pres[name].clone()
             pres[name][slot] = True
         new_alive = self.state.alive.clone()

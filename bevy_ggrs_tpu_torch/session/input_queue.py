@@ -16,6 +16,12 @@ import numpy as np
 
 from bevy_ggrs_tpu_torch.session.common import InvalidRequest, NULL_FRAME
 
+# Disconnect-frame sentinel meaning "this player never disconnected": the
+# P2P session passes it for connected players, and :meth:`PyQueueSet.gather`
+# marks a player DISCONNECTED from ``frame >= disc_frames[h]``, which it
+# never is. The value is INT32_MAX, as in the JAX package's native core.
+NEVER_DISCONNECTED = 2**31 - 1
+
 
 class InputQueue:
     def __init__(self, zero_input: np.ndarray, delay: int = 0):
@@ -161,7 +167,56 @@ class PyQueueSet:
         return bits, status
 
 
+class PyTracker:
+    """The misprediction tracker: the inputs each advanced frame used, and
+    the first frame whose used input a later confirmed input contradicts
+    (the rollback target)."""
+
+    def __init__(self, num_players: int, zero: np.ndarray):
+        from bevy_ggrs_tpu_torch.schedule import CONFIRMED
+
+        self._P = int(num_players)
+        self._confirmed = CONFIRMED
+        self._used = {}
+        self._first_incorrect = NULL_FRAME
+
+    def record_used(self, frame: int, bits: np.ndarray, status: np.ndarray) -> None:
+        self._used[int(frame)] = (np.array(bits, copy=True), np.array(status, copy=True))
+
+    def note_confirmed(self, handle: int, frame: int, bits) -> None:
+        used = self._used.get(int(frame))
+        if used is None:
+            return
+        used_bits, used_status = used
+        if used_status[handle] != self._confirmed and not np.array_equal(
+            used_bits[handle], np.asarray(bits, dtype=used_bits.dtype)
+        ):
+            if self._first_incorrect == NULL_FRAME or frame < self._first_incorrect:
+                self._first_incorrect = int(frame)
+
+    @property
+    def first_incorrect(self) -> int:
+        return self._first_incorrect
+
+    def clear_first_incorrect(self) -> None:
+        self._first_incorrect = NULL_FRAME
+
+    def get_used(self, frame: int):
+        return self._used.get(int(frame))
+
+    def discard_before(self, frame: int) -> None:
+        for f in [f for f in self._used if f < frame]:
+            del self._used[f]
+
+
+# The session builds its queues and its tracker through these factories.
+# They return the Python classes: the native data plane is not ported yet
+# (ROADMAP.md, port queue item 2).
+
+
 def make_queue_set(zero: np.ndarray, delays: Sequence[int]) -> PyQueueSet:
-    """The session's queue set. Always the Python one for now: the native
-    data plane is not ported yet."""
     return PyQueueSet(np.asarray(zero), delays)
+
+
+def make_tracker(num_players: int, zero: np.ndarray) -> PyTracker:
+    return PyTracker(num_players, np.asarray(zero))

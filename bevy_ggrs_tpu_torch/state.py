@@ -50,17 +50,59 @@ def resolve_device(device=None) -> torch.device:
 
 
 def np_dtype(dtype: torch.dtype) -> np.dtype:
-    """The numpy dtype holding the same values as torch ``dtype``."""
+    """The numpy dtype of ``dtype``'s host arrays: the one holding the same
+    values, except for bfloat16, which numpy lacks and which the host holds
+    as its 16-bit patterns in ``uint16`` (see :func:`host_array`)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.uint16)
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def host_array(value, dtype: torch.dtype) -> np.ndarray:
+    """``value`` as a host array of ``dtype`` (:func:`np_dtype`). A
+    bfloat16 value is rounded to nearest even from float32, as JAX's
+    bfloat16 does, and kept as its bit pattern."""
+    if dtype == torch.bfloat16:
+        bf = torch.from_numpy(np.array(value, dtype=np.float32)).to(torch.bfloat16)
+        return bf.view(torch.int16).numpy().view(np.uint16)
+    return np.array(value, dtype=np_dtype(dtype))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` (never a view of a CPU tensor's memory); a
+    bfloat16 tensor comes back as its bit patterns in ``uint16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+def from_numpy(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A tensor of ``dtype`` on ``device`` from a host array (copied). For
+    bfloat16, a 2-byte array that is not float16 holds bit patterns (this
+    package's ``uint16`` or JAX's own bfloat16); any other array holds
+    values."""
+    a = np.asarray(a)
+    if dtype == torch.bfloat16:
+        if a.dtype.itemsize != 2 or a.dtype == np.float16:
+            a = host_array(a, dtype)
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device).to(dtype)
+
+
 # JAX runs with 64-bit types disabled, so a Python or numpy 64-bit value
-# becomes its 32-bit counterpart there; resources follow the same rule so
-# the two packages hash the same words.
+# becomes its 32-bit counterpart there; resources and components follow the
+# same rule so the two packages hold and hash the same words.
 _CANONICAL = {
     np.dtype(np.int64): np.int32,
     np.dtype(np.uint64): np.uint32,
     np.dtype(np.float64): np.float32,
+}
+_CANONICAL_TORCH = {
+    torch.int64: torch.int32,
+    torch.uint64: torch.uint32,
+    torch.float64: torch.float32,
 }
 
 
@@ -149,8 +191,11 @@ class TypeRegistry:
         dtype: torch.dtype = torch.float32,
         default: Any = 0,
     ) -> "TypeRegistry":
+        """Register a component; a 64-bit ``dtype`` is held as its 32-bit
+        counterpart, as in JAX (64-bit types off)."""
         if name in self.components:
             raise ValueError(f"component {name!r} registered twice")
+        dtype = _CANONICAL_TORCH.get(dtype, dtype)
         self.components[name] = ComponentDef(name, tuple(shape), dtype, default)
         return self
 
@@ -225,7 +270,7 @@ class HostWorld:
         self._alive = np.zeros((capacity,), dtype=bool)
         self._rollback_id = np.full((capacity,), -1, dtype=np.int32)
         self._components = {
-            n: np.full((capacity,) + d.shape, d.default, dtype=np_dtype(d.dtype))
+            n: np.full((capacity,) + d.shape, host_array(d.default, d.dtype))
             for n, d in registry.components.items()
         }
         self._present = {n: np.zeros((capacity,), dtype=bool) for n in registry.components}
@@ -246,8 +291,8 @@ class HostWorld:
         self._alive[slot] = True
         self._rollback_id[slot] = rollback_id
         for name, value in components.items():
-            self._components[name][slot] = np.asarray(
-                value, dtype=self._components[name].dtype
+            self._components[name][slot] = host_array(
+                value, self.registry.components[name].dtype
             )
             self._present[name][slot] = True
         return slot
@@ -274,7 +319,7 @@ class HostWorld:
         return WorldState(
             alive=torch.tensor(self._alive, device=device),
             rollback_id=torch.tensor(self._rollback_id, device=device),
-            components={n: torch.tensor(a, device=device)
+            components={n: from_numpy(a, self.registry.components[n].dtype, device)
                         for n, a in self._components.items()},
             present={n: torch.tensor(a, device=device)
                      for n, a in self._present.items()},
@@ -285,9 +330,11 @@ class HostWorld:
 
 def to_host(state: WorldState) -> Dict[str, Any]:
     """Host copy of a world state as numpy arrays, in the dict layout and
-    dtypes of ``bevy_ggrs_tpu.state.to_host``. The arrays are copies, never
-    views of a CPU state's memory."""
-    host = tree_map(lambda t: t.cpu().numpy().copy(), state)
+    dtypes of ``bevy_ggrs_tpu.state.to_host``; a bfloat16 component comes
+    back as its bit patterns in ``uint16`` (JAX's bfloat16 array viewed as
+    ``uint16`` holds the same). The arrays are copies, never views of a CPU
+    state's memory."""
+    host = tree_map(to_numpy, state)
     return {f.name: getattr(host, f.name) for f in dataclasses.fields(WorldState)}
 
 
@@ -307,18 +354,15 @@ def from_host(registry: TypeRegistry, host: Dict[str, Any], device=None) -> Worl
             f"registry's {sorted(registry.resources)}"
         )
 
-    def tensor(a, dtype=None):
-        t = torch.tensor(np.asarray(a), device=device)
-        return t if dtype is None else t.to(dtype)
-
     return WorldState(
-        alive=tensor(host["alive"], torch.bool),
-        rollback_id=tensor(host["rollback_id"], torch.int32),
-        components={n: tensor(host["components"][n], d.dtype)
+        alive=from_numpy(host["alive"], torch.bool, device),
+        rollback_id=from_numpy(host["rollback_id"], torch.int32, device),
+        components={n: from_numpy(host["components"][n], d.dtype, device)
                     for n, d in registry.components.items()},
-        present={n: tensor(host["present"][n], torch.bool)
+        present={n: from_numpy(host["present"][n], torch.bool, device)
                  for n in registry.components},
-        resources={n: tree_map(tensor, host["resources"][n])
+        resources={n: tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
+                               host["resources"][n])
                    for n in registry.resources},
     )
 

@@ -72,10 +72,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``torch.profiler``, the device's busy time per tick of the boids
    SyncTests, continued for 8 more ticks after their counts were read.
 
+10. P2P and spectator sessions on ``cuda``, every peer an app of its own
+   driven through ``GGRSStage`` with input delay 2, ``max_prediction`` 8
+   and desync detection "auto" (a checksum exchange every 8 frames), on
+   seeded random inputs: box_game, 2 peers, 600 frames over a loopback
+   network with 40 ms latency, 10 ms jitter and 5 % loss, each peer's
+   socket wrapped in a ``ChaosSocket`` with a reorder, a duplicate and a
+   corrupt window, and a spectator following peer 0 (its world's checksum
+   at every exchange frame equal to the peers'); the same run on the CPU,
+   its confirmed checksum stream bitwise the card's; box_game, 4 peers in
+   a full mesh, 300 frames; boids-1,024 with ``kernel="mxu"``, 2 peers,
+   120 frames; box_game, 2 peers over real UDP on 127.0.0.1, 120 frames on
+   the wall clock. In every run both peers reach RUNNING, no
+   ``DESYNC_DETECTED`` fires, and the peers' settled checksums are equal;
+   the box_game run compares at least 30 exchanges a peer, rolls back on
+   each peer and drops corrupt datagrams on their CRC. On each peer the
+   checksum kernel ran once per save and once per restore guard, and the
+   boids run's tensor-core kernel once per advanced frame (resimulated
+   frames included) and no other force kernel. Per peer: ticks (mean,
+   p99), rollbacks, resimulated frames, the deepest rollback, exchanges
+   compared, launches; the device's busy share of 30 render frames of the
+   box_game run under ``torch.profiler``.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5
-and 8 and read just after; launches made to compare a kernel with its
-plain version are not counted. The last three lines are the kernel table
-(JSON), the card's name and power limit, and the result (JSON).
+and 8 and each P2P run of phase 10 and read just after (phase 10 reads
+them around each peer's update); launches made to compare a kernel with
+its plain version are not counted. The last three lines are the kernel
+table (JSON), the card's name and power limit, and the result (JSON).
 """
 
 from __future__ import annotations
@@ -672,8 +695,8 @@ def check_binning(tnb, boids) -> None:
 def record(session):
     """Wrap the session so every reported checksum and every request is
     logged."""
-    log = {"checksums": [], "saves": 0, "advances": 0}
-    report, advance = session.report_checksum, session.advance_frame
+    log = {"checksums": [], "saves": 0, "advances": 0, "resimulated": []}
+    report, advance = getattr(session, "report_checksum", None), session.advance_frame
 
     def report_checksum(frame, cs):
         log["checksums"].append((frame, cs))
@@ -685,9 +708,15 @@ def record(session):
             kind = type(r).__name__
             log["saves"] += kind == "SaveGameState"
             log["advances"] += kind == "AdvanceFrame"
+        if requests and type(requests[0]).__name__ == "LoadGameState":
+            # A rollback: every advance but the new frame's resimulates.
+            log["resimulated"].append(
+                sum(type(r).__name__ == "AdvanceFrame" for r in requests) - 1)
         return requests
 
-    session.report_checksum, session.advance_frame = report_checksum, advance_frame
+    if report is not None:
+        session.report_checksum = report_checksum
+    session.advance_frame = advance_frame
     return log
 
 
@@ -711,28 +740,30 @@ def drive(app, session, session_type, frames: int):
     return log, ticks
 
 
-def box_app(device):
+def box_app(device, inputs=None, players: int = 2):
+    """A box_game app; ``inputs`` is the input system (default: keys held
+    for 20 frames in turn)."""
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import box_game
 
     keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT, box_game.INPUT_DOWN,
             box_game.INPUT_LEFT, box_game.INPUT_UP | box_game.INPUT_RIGHT, 0]
 
-    def inputs(handle, app):
+    def held_keys(handle, app):
         return np.uint8(keys[(app.session.current_frame // 20 + 3 * handle) % len(keys)])
 
     def setup(world, app):
-        box_game.spawn_players(world, 2, next_id=app.rollback_id_provider.next_id)
+        box_game.spawn_players(world, players, next_id=app.rollback_id_provider.next_id)
 
     return (
         GGRSPlugin(box_game.INPUT_SPEC)
-        .with_input_system(inputs)
+        .with_input_system(inputs or held_keys)
         .register_rollback_component("translation", shape=(3,), dtype=torch.float32)
         .register_rollback_component("velocity", shape=(3,), dtype=torch.float32)
         .register_rollback_component("player_handle", dtype=torch.int32, default=-1)
         .register_rollback_resource("frame_count", np.uint32(0))
         .with_rollback_schedule(box_game.make_schedule())
-        .with_num_players(2)
+        .with_num_players(players)
         .with_max_prediction_window(8)
         .with_world_capacity(16)
         .with_setup_system(setup)
@@ -741,7 +772,7 @@ def box_app(device):
     )
 
 
-def boids_app(n: int, device, schedule=None):
+def boids_app(n: int, device, schedule=None, inputs=None):
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import boids
 
@@ -750,7 +781,7 @@ def boids_app(n: int, device, schedule=None):
 
     return (
         GGRSPlugin(boids.INPUT_SPEC)
-        .with_input_system(steer)
+        .with_input_system(inputs or steer)
         .register_rollback_component("position", shape=(2,))
         .register_rollback_component("velocity", shape=(2,))
         .register_rollback_component("leader_handle", dtype=torch.int32, default=-1)
@@ -895,6 +926,375 @@ def tick_stats(ticks):
     t = np.asarray(ticks)
     return {"mean_ms": float(t.mean()), "p99_ms": float(np.percentile(t, 99)),
             "ticks": len(ticks)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: P2P and spectator sessions through GGRSPlugin
+# ---------------------------------------------------------------------------
+
+P2P_DT = DT  # one render frame of the network's virtual clock
+P2P_INPUT_DELAY = 2
+P2P_MAX_PREDICTION = 8
+P2P_MIN_COMPARED = 30  # checksum exchanges each peer must have compared (600 frames)
+# The lossy loopback of the box_game and boids runs: 40 ms latency, 10 ms
+# jitter and 5 % of the datagrams lost, from a seed.
+P2P_NET = {"latency": 0.040, "jitter": 0.010, "loss": 0.05, "seed": 7}
+
+
+def p2p_chaos_plan(seconds: float):
+    """Faults on each peer's outgoing datagrams on top of the network's
+    loss, in windows of a fifth of a run of ``seconds`` each: a reorder
+    window, then a duplicate window, then a corrupt window (for the
+    600-frame box_game run: 1-3 s, 3-5 s, 5-7 s of its 10 s)."""
+    from bevy_ggrs_tpu_torch.chaos import ChaosPlan, Corrupt, Duplicate, Reorder
+
+    w = seconds / 5
+    return ChaosPlan(seed=11, directives=(
+        Reorder(0.5 * w, 1.5 * w, rate=0.2, delay=0.03),
+        Duplicate(1.5 * w, 2.5 * w, rate=0.2),
+        Corrupt(2.5 * w, 3.5 * w, rate=0.1),
+    ))
+
+
+def seeded_inputs(seed: int, frames: int, players: int):
+    """An input system reading a seeded random table: the same bits for a
+    frame and handle on every device and in every run."""
+    table = np.random.RandomState(seed).randint(0, 16, size=(frames + 64, players))
+    table = table.astype(np.uint8)
+    return lambda handle, app: table[app.session.current_frame, handle]
+
+
+class P2PRun:
+    """``players`` P2P peers (and optionally a spectator of peer 0), each an
+    app of its own built by ``make_app(device, inputs)`` and driven through
+    ``GGRSStage`` on one clock: the loopback network's virtual clock, or
+    the wall clock over real UDP on 127.0.0.1."""
+
+    def __init__(self, make_app, device, players: int, seed: int, frames: int,
+                 transport: str = "loopback", chaos: bool = False,
+                 spectator: bool = False):
+        from bevy_ggrs_tpu_torch.app import SessionType
+        from bevy_ggrs_tpu_torch.chaos import ChaosSocket
+        from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
+        from bevy_ggrs_tpu_torch.transport import LoopbackNetwork, UdpSocket
+        from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+        self.frames = frames
+        self.device = torch.device(device)
+        self.virtual = transport == "loopback"
+        inputs = seeded_inputs(seed, 4 * frames, players)
+        if self.virtual:
+            self.net = LoopbackNetwork(**P2P_NET)
+            sockets = [self.net.socket(("peer", h)) for h in range(players)]
+            addrs = [("peer", h) for h in range(players)]
+            clock = lambda: self.net.now  # noqa: E731
+        else:  # a bind failure raises, and fails the phase
+            self.net = None
+            sockets = [UdpSocket(0, host="127.0.0.1") for _ in range(players)]
+            addrs = [("127.0.0.1", s.local_port()) for s in sockets]
+            clock = time.monotonic
+        spec_addr = ("spec", 0)
+        self.peers = []
+        for me in range(players):
+            app = make_app(device, inputs)
+            builder = (SessionBuilder(app.stage.runner.input_spec)
+                       .with_num_players(players)
+                       .with_max_prediction_window(P2P_MAX_PREDICTION)
+                       .with_input_delay(P2P_INPUT_DELAY))
+            for h in range(players):
+                builder.add_player(PlayerType.local() if h == me
+                                   else PlayerType.remote(addrs[h]), h)
+            if spectator and me == 0:
+                builder.add_player(PlayerType.spectator(spec_addr), players)
+            sock = sockets[me]
+            if chaos:
+                sock = ChaosSocket(sock, p2p_chaos_plan(frames * P2P_DT), clock=clock,
+                                   addr=addrs[me])
+            metrics = Metrics()
+            session = builder.start_p2p_session(sock, clock=clock, metrics=metrics)
+            log = record(session)
+            app.insert_session(session, SessionType.P2P)
+            self.peers.append({"app": app, "session": session, "socket": sock,
+                               "metrics": metrics, "log": log, "ticks": [],
+                               "launches": {}})
+        self.spectator = None
+        if spectator:
+            app = make_app(device, inputs)
+            session = (SessionBuilder(app.stage.runner.input_spec)
+                       .with_num_players(players)
+                       .start_spectator_session(addrs[0], self.net.socket(spec_addr),
+                                                clock=clock))
+            app.insert_session(session, SessionType.SPECTATOR)
+            self.spectator = {"app": app, "session": session, "checksums": {},
+                              "launches": {}}
+
+    def sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def update(self, entry, kernels, now) -> None:
+        """One render frame of one app, adding its kernel launches to the
+        entry; a render frame that ran a simulation step is a tick, and its
+        milliseconds (ending in a device synchronise) are kept."""
+        before = {fn.__name__: fn.launches for fn in kernels}
+        t0 = time.perf_counter()
+        steps = entry["app"].update(now)
+        self.sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        for fn in kernels:
+            entry["launches"][fn.__name__] = (entry["launches"].get(fn.__name__, 0)
+                                              + fn.launches - before[fn.__name__])
+        entry["polls"] = entry.get("polls", 0) + 1
+        if steps:
+            entry.setdefault("ticks", []).append(ms)
+
+    def step(self, kernels, ts, tck) -> None:
+        """One render frame of every app, in turn."""
+        if self.virtual:
+            self.net.advance(P2P_DT)
+        for peer in self.peers:
+            self.update(peer, kernels, self.net.now if self.virtual else None)
+        if self.spectator is not None:
+            spec = self.spectator
+            self.update(spec, kernels, self.net.now)
+            runner = spec["app"].stage.runner
+            interval = self.peers[0]["session"].desync_interval
+            if runner.frame % interval == 0 and runner.frame not in spec["checksums"]:
+                # The spectator's world at frame F is the state every peer
+                # saved for F; counted apart from the apps' launches.
+                spec["checksums"][runner.frame] = ts.combine64(tck.checksum(runner.state))
+
+    def run(self, kernels, ts, tck, max_seconds: float = 120.0) -> "P2PRun":
+        """Step until every peer has advanced ``frames`` frames (and the
+        spectator, when there is one, has followed to within 2 checksum
+        intervals of the host's end)."""
+        t0 = time.perf_counter()
+        while True:
+            frames = [p["app"].stage.runner.frame for p in self.peers]
+            done = min(frames) >= self.frames
+            if done and self.spectator is not None:
+                host = self.peers[0]["session"].confirmed_frame()
+                done = self.spectator["app"].stage.runner.frame >= host - 16
+            if done:
+                self.seconds = time.perf_counter() - t0
+                return self
+            check(time.perf_counter() - t0 < max_seconds,
+                  f"P2P run stalled at frames {frames} after {max_seconds} s")
+            self.step(kernels, ts, tck)
+
+    def settled(self) -> int:
+        """The last frame whose checksum is final on every peer: confirmed,
+        and below any rollback still pending."""
+        upto = []
+        for p in self.peers:
+            s = p["session"]
+            pending = s._tracker.first_incorrect
+            upto.append(s.confirmed_frame() if pending < 0
+                        else min(s.confirmed_frame(), pending - 1))
+        return min(upto)
+
+    def confirmed_stream(self, peer) -> dict:
+        """Frame -> the last checksum the peer reported for it, over the
+        frames settled on every peer (later reports of a frame replace the
+        ones a rollback made stale)."""
+        upto = self.settled()
+        stream = {}
+        for frame, cs in peer["log"]["checksums"]:
+            stream[frame] = cs
+        return {f: cs for f, cs in sorted(stream.items()) if f <= upto}
+
+    def summary(self, label: str) -> dict:
+        """Check the run's invariants and return its numbers."""
+        from bevy_ggrs_tpu_torch.session import EventKind, SessionState
+
+        out = {"peers": []}
+        streams = [self.confirmed_stream(p) for p in self.peers]
+        for i, (peer, stream) in enumerate(zip(self.peers, streams)):
+            session, runner = peer["session"], peer["app"].stage.runner
+            events = peer["app"].events
+            check(session.current_state() == SessionState.RUNNING,
+                  f"{label} peer {i}: not RUNNING")
+            check(any(e.kind == EventKind.SYNCHRONIZED for e in events),
+                  f"{label} peer {i}: never synchronized")
+            desyncs = [e for e in events if e.kind == EventKind.DESYNC_DETECTED]
+            check(not desyncs, f"{label} peer {i}: DESYNC_DETECTED {desyncs[:2]}")
+            check(stream == streams[0],
+                  f"{label}: peer {i}'s confirmed checksums differ from peer 0's")
+            resim = peer["log"]["resimulated"]
+            crc = sum(ep.data_crc_drops for ep in session._endpoints.values())
+            out["peers"].append({
+                "frames": runner.frame,
+                "ticks": tick_stats(peer["ticks"]),
+                "render_frames": peer["polls"],
+                "rollbacks": runner.rollbacks_total,
+                "resimulated_frames": sum(resim),
+                "deepest_rollback": max(resim, default=0),
+                "compared": int(peer["metrics"].counters["checksums_compared"]),
+                "data_crc_drops": crc,
+                "skipped_steps": peer["app"].stage.frames_skipped,
+                "launches": dict(peer["launches"]),
+                "saves": peer["log"]["saves"],
+                "advances": peer["log"]["advances"],
+                "guards": runner.rollbacks_total if runner.verify_restores else 0,
+            })
+        out["confirmed_checksums"] = len(streams[0])
+        out["seconds"] = self.seconds
+        if self.spectator is not None:
+            host = streams[0]
+            seen = {f: cs for f, cs in self.spectator["checksums"].items() if f in host}
+            check(len(seen) >= 10, f"{label}: spectator compared only {len(seen)} frames")
+            bad = [f for f, cs in seen.items() if host[f] != cs]
+            check(not bad, f"{label}: spectator checksums differ from the host's at {bad[:5]}")
+            spec_runner = self.spectator["app"].stage.runner
+            check(spec_runner.rollbacks_total == 0, f"{label}: the spectator rolled back")
+            out["spectator"] = {"frames": spec_runner.frame, "compared_with_host": len(seen),
+                                "launches": dict(self.spectator["launches"])}
+        return out
+
+    def close(self) -> None:
+        for peer in self.peers:
+            close = getattr(peer["socket"], "close", None)
+            if close is not None and not self.virtual:
+                close()
+
+
+def p2p_print(label: str, result: dict, card: str) -> None:
+    for i, peer in enumerate(result["peers"]):
+        print(f"{label} peer {i}: " + json.dumps(peer))
+    if "spectator" in result:
+        print(f"{label} spectator: " + json.dumps(result["spectator"]))
+    print(f"{label}: {result['confirmed_checksums']} confirmed frames' checksums equal "
+          f"on every peer; {result['seconds']:.1f} s; {card}")
+
+
+def check_p2p_launches(label: str, result: dict, force=None, others=()) -> None:
+    """On each peer the checksum kernel ran once per save and once per
+    restore guard, and the force kernel ``force`` (when given) once per
+    advanced frame, resimulated ones included, and no other force kernel."""
+    for i, peer in enumerate(result["peers"]):
+        got = peer["launches"].get("world_checksum", 0)
+        check(got == peer["saves"] + peer["guards"],
+              f"{label} peer {i}: {got} checksum launches, {peer['saves']} saves + "
+              f"{peer['guards']} guards")
+        if force is not None:
+            check(peer["launches"].get(force, 0) == peer["advances"],
+                  f"{label} peer {i}: {force} launches {peer['launches']}, "
+                  f"{peer['advances']} advances")
+            check(all(peer["launches"].get(k, 0) == 0 for k in others),
+                  f"{label} peer {i}: another force kernel ran: {peer['launches']}")
+
+
+def p2p_busy(run: P2PRun, kernels, ts, tck, iters: int = 30) -> dict:
+    """``iters`` more render frames of a loopback P2P run under
+    ``torch.profiler``: the wall milliseconds a render frame (every peer's
+    update, profiler on) and the device's busy share of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run.step(kernels, ts, tck)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(len(spans) > 0, "the profiler saw no device activity in the P2P run")
+    busy_us, end = 0.0, float("-inf")
+    for t_start, t_end in spans:
+        busy_us += max(0.0, t_end - max(t_start, end))
+        end = max(end, t_end)
+    return {"wall_ms_per_render_frame": wall_ms / iters,
+            "device_busy_ms_per_render_frame": busy_us / 1e3 / iters,
+            "busy_share": busy_us / 1e3 / wall_ms}
+
+
+def p2p_phase(kernels, force_kernels, ts, tck, tpw, box_frames: int = 600,
+              mesh_frames: int = 300, boids_frames: int = 120,
+              udp_frames: int = 120, boids_n: int = 1024, device: str = "cuda") -> dict:
+    """Phase 10: the five P2P runs. ``device="cpu"`` runs the same sessions
+    on the plain versions (no kernel counts)."""
+    from bevy_ggrs_tpu_torch.models import boids
+
+    on_card = device == "cuda"
+    card = smi() if on_card else "cpu"
+    results = {}
+
+    def box(players):
+        return lambda dev, inputs: box_app(dev, inputs, players=players)
+
+    def reset():
+        if on_card:
+            reset_counts(kernels)
+
+    # 1. box_game, 2 peers over the lossy loopback with chaos, a spectator.
+    reset()
+    run = P2PRun(box(2), device, 2, seed=1, frames=box_frames, chaos=True,
+                 spectator=True).run(kernels, ts, tck)
+    results["box2"] = run.summary("p2p box_game 2 peers")
+    check(all(p["rollbacks"] > 0 for p in results["box2"]["peers"]),
+          "p2p box_game: a peer never rolled back")
+    check(all(p["compared"] >= min(P2P_MIN_COMPARED, box_frames // 20)
+              for p in results["box2"]["peers"]),
+          f"p2p box_game: too few checksum exchanges {results['box2']['peers']}")
+    check(sum(p["data_crc_drops"] for p in results["box2"]["peers"]) > 0,
+          "p2p box_game: the corrupt window caused no crc drop")
+    box_streams = [run.confirmed_stream(p) for p in run.peers]
+    if on_card:
+        check_p2p_launches("p2p box_game", results["box2"])
+        # After the streams were read: the profiled frames run on.
+        results["box2"]["busy"] = p2p_busy(run, kernels, ts, tck)
+    p2p_print("p2p box_game 2 peers", results["box2"], card)
+
+    # 2. the same run on the cpu: the same confirmed checksum stream.
+    if on_card:
+        cpu = P2PRun(box(2), "cpu", 2, seed=1, frames=box_frames, chaos=True,
+                     spectator=True).run(kernels, ts, tck)
+        cpu_result = cpu.summary("p2p box_game 2 peers, cpu")
+        cpu_streams = [cpu.confirmed_stream(p) for p in cpu.peers]
+        for i, (a, b) in enumerate(zip(box_streams, cpu_streams)):
+            common = sorted(set(a) & set(b))
+            check(len(common) >= 10 and all(a[f] == b[f] for f in common),
+                  f"p2p box_game peer {i}: cuda and cpu confirmed checksums differ")
+            print(f"p2p box_game peer {i}: cuda stream {len(a)} frames, cpu stream "
+                  f"{len(b)} frames, {len(common)} in common, bitwise equal"
+                  + ("" if len(a) == len(b) else " (the streams differ in length)"))
+        results["box2_cpu"] = cpu_result
+
+    # 3. box_game, 4 peers in a full mesh.
+    reset()
+    results["box4"] = P2PRun(box(4), device, 4, seed=2, frames=mesh_frames).run(
+        kernels, ts, tck).summary("p2p box_game 4 peers")
+    if on_card:
+        check_p2p_launches("p2p box_game 4 peers", results["box4"])
+    p2p_print("p2p box_game 4 peers", results["box4"], card)
+
+    # 4. boids-1,024 with the general tensor-core kernel, 2 peers.
+    n = boids_n
+    reset()
+    schedule = boids.make_schedule(kernel="mxu")
+    results["boids1024_mxu"] = P2PRun(
+        lambda dev, inputs: boids_app(n, dev, schedule, inputs), device, 2, seed=3,
+        frames=boids_frames).run(kernels, ts, tck).summary("p2p boids-1024 mxu")
+    if on_card:
+        check_p2p_launches("p2p boids-1024 mxu", results["boids1024_mxu"],
+                           force=tpw.pairwise_force_rows_mxu2.__name__,
+                           others=[k.__name__ for k in force_kernels
+                                   if k is not tpw.pairwise_force_rows_mxu2])
+    p2p_print("p2p boids-1024 mxu", results["boids1024_mxu"], card)
+
+    # 5. box_game, 2 peers over real UDP on 127.0.0.1, on the wall clock.
+    reset()
+    udp = P2PRun(box(2), device, 2, seed=4, frames=udp_frames, transport="udp")
+    try:
+        results["udp"] = udp.run(kernels, ts, tck, max_seconds=60.0).summary(
+            "p2p box_game over udp")
+    finally:
+        udp.close()
+    if on_card:
+        check_p2p_launches("p2p box_game over udp", results["udp"])
+    p2p_print("p2p box_game over udp", results["udp"], card)
+    return results
 
 
 def main() -> int:
@@ -1229,6 +1629,15 @@ def main() -> int:
              "boids1024_synctest": tick_stats(boids_ticks)}
     ticks.update({f"{label}_synctest": tick_stats(r["ticks"]) for label, r in scale.items()})
     print("ticks " + json.dumps(ticks))
+
+    phase("10 P2P and spectator sessions on cuda")
+    p2p = p2p_phase(kernels, force_kernels, ts, tck, tpw)
+    p2p_runs = [r for label, r in p2p.items() if label != "box2_cpu"]
+    ck["launches"] += sum(peer["launches"].get("world_checksum", 0)
+                          for r in p2p_runs for peer in r["peers"])
+    mxu2["launches"] += sum(peer["launches"].get("pairwise_force_rows_mxu2", 0)
+                            for peer in p2p["boids1024_mxu"]["peers"])
+    print("p2p busy " + json.dumps(p2p["box2"]["busy"]))
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,15 @@ import pytest
 import torch
 
 from bevy_ggrs_tpu_torch import state as ts
-from bevy_ggrs_tpu_torch.app import GGRSPlugin
+from bevy_ggrs_tpu_torch.app import GGRSPlugin, RollbackApp, SessionType
 from bevy_ggrs_tpu_torch.models import boids as tboids
 from bevy_ggrs_tpu_torch.models import box_game as tbox
 from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
 from bevy_ggrs_tpu_torch.ops import checksum as tck
 from bevy_ggrs_tpu_torch.ops import pairwise as tpw
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
+from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
+from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bevy_ggrs_tpu_torch").rglob("*.py")) + [
@@ -79,7 +81,24 @@ ENTRY_POINTS = {
         .with_input_system(lambda handle, app: np.uint8(0))
         .register_rollback_component("translation", shape=(3,))
         .build()),
+    "GGRSPlugin.build (P2P stage)": lambda: p2p_app(),
 }
+
+
+def p2p_session():
+    """A P2P session: host code, built without touching a device."""
+    builder = SessionBuilder(tbox.INPUT_SPEC).with_num_players(2)
+    builder.add_player(PlayerType.local(), 0)
+    builder.add_player(PlayerType.remote(("peer", 1)), 1)
+    return builder.start_p2p_session(LoopbackNetwork().socket(("peer", 0)))
+
+
+def p2p_app():
+    app = RollbackApp().insert_session(p2p_session(), SessionType.P2P)
+    return (GGRSPlugin(tbox.INPUT_SPEC)
+            .with_input_system(lambda handle, app: np.uint8(0))
+            .register_rollback_component("translation", shape=(3,))
+            .build(app))
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -87,6 +106,11 @@ def test_entry_points_raise_without_a_gpu(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_session_builder_is_host_only(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert p2p_session().current_state().name == "SYNCHRONIZING"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
