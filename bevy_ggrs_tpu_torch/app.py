@@ -15,13 +15,16 @@ Counterpart of ``bevy_ggrs_tpu/app.py``:
   each step dispatched on the session flavor, and a reset when the
   session is removed.
 
-The stage runs SyncTest, P2P and spectator sessions. Speculation and
-meshes belong to later parts (see ROADMAP.md) and raise
-``NotImplementedError``.
+The stage runs SyncTest, P2P and spectator sessions. With
+``GGRSPlugin.with_speculation(n)`` a P2P step is one
+:meth:`~bevy_ggrs_tpu_torch.spec_runner.SpeculativeRollbackRunner.tick`
+(the burst, any branch commit and the next n-branch rollout). Device
+meshes are not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import time as _time
 from typing import Callable, List, Optional
@@ -32,8 +35,10 @@ import torch
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
 from bevy_ggrs_tpu_torch.schedule import InputSpec, Schedule
 from bevy_ggrs_tpu_torch.session.common import (
+    EventKind,
     NotSynchronized,
     PredictionThreshold,
+    SessionEvent,
     SessionState,
 )
 from bevy_ggrs_tpu_torch.session.p2p import P2PSession
@@ -146,19 +151,23 @@ class GGRSStage:
         update_frequency: int = DEFAULT_FPS,
         clock=None,
         metrics=None,
+        speculation: Optional[int] = None,
+        speculation_opts: Optional[dict] = None,
     ):
         self.metrics = metrics if metrics is not None else null_metrics
         self.input_system = input_system
         self.update_frequency = int(update_frequency)
-        self.runner = RollbackRunner(
-            schedule,
-            initial_state,
-            max_prediction=max_prediction,
-            num_players=num_players,
-            input_spec=input_spec,
-            metrics=self.metrics,
-            device=initial_state.device,
-        )
+        runner_args = dict(max_prediction=max_prediction, num_players=num_players,
+                           input_spec=input_spec, metrics=self.metrics,
+                           device=initial_state.device)
+        if speculation:
+            from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
+
+            self.runner = SpeculativeRollbackRunner(
+                schedule, initial_state, num_branches=speculation,
+                **runner_args, **(speculation_opts or {}))
+        else:
+            self.runner = RollbackRunner(schedule, initial_state, **runner_args)
         self._clock = clock if clock is not None else _time.monotonic
         self.runner.warmup()
         self.accumulator = 0.0
@@ -231,7 +240,13 @@ class GGRSStage:
         except PredictionThreshold:
             self.frames_skipped += 1  # too far past the peers: skip the step
             return
-        self.runner.handle_requests(requests, session)
+        # The speculative runner runs the whole tick (burst, branch commit,
+        # next rollout) in one call; the plain runner runs the burst.
+        tick = getattr(self.runner, "tick", None)
+        if tick is not None:
+            tick(requests, session.confirmed_frame(), session)
+        else:
+            self.runner.handle_requests(requests, session)
 
     def _step_spectator(self, app: RollbackApp) -> None:
         session: SpectatorSession = app.session
@@ -261,6 +276,8 @@ class GGRSPlugin:
         self.clock = None
         self.metrics = None
         self.device = None
+        self.speculation: Optional[int] = None
+        self.speculation_opts: Optional[dict] = None
 
     def with_update_frequency(self, fps: int) -> "GGRSPlugin":
         self.update_frequency = int(fps)
@@ -325,11 +342,29 @@ class GGRSPlugin:
             "'Sharding')"
         )
 
-    def with_speculation(self, *args, **kwargs) -> "GGRSPlugin":
-        raise NotImplementedError(
-            "speculative rollouts are not ported yet (ROADMAP.md, port "
-            "queue: 'Speculation')"
-        )
+    def with_speculation(self, num_branches: int, branch_values=None, attest: bool = True,
+                         predictor=None) -> "GGRSPlugin":
+        """Precompute rollback recoveries with a ``num_branches``-wide
+        speculative rollout each P2P tick (see
+        :mod:`bevy_ggrs_tpu_torch.spec_runner`); values <= 0 disable it.
+
+        ``branch_values`` overrides the candidate input values the branch
+        tree enumerates (default: the model's ``InputSpec.values``). With
+        ``attest`` (default), warmup checks that the batched rollout and
+        the serial burst agree bitwise for this model and disables
+        speculation, with a ``SPECULATION_DISABLED`` event in
+        ``app.events``, when they do not. ``predictor``: None (with
+        ``GGRS_PREDICTOR`` unset or off) or False; the learned predictor
+        is not ported yet, and any other value raises when the app is
+        built."""
+        n = int(num_branches)
+        self.speculation = n if n > 0 else None
+        self.speculation_opts = {"attest": bool(attest)}
+        if branch_values is not None:
+            self.speculation_opts["branch_values"] = list(branch_values)
+        if predictor is not None:
+            self.speculation_opts["predictor"] = predictor
+        return self
 
     def build(self, app: Optional[RollbackApp] = None) -> RollbackApp:
         if self.input_system is None:
@@ -348,5 +383,11 @@ class GGRSPlugin:
             update_frequency=self.update_frequency,
             clock=self.clock,
             metrics=self.metrics,
+            speculation=self.speculation,
+            speculation_opts=self.speculation_opts,
         )
+        attestation = getattr(app.stage.runner, "attestation", None)
+        if attestation is not None and not attestation.ok:
+            app.events.append(SessionEvent(EventKind.SPECULATION_DISABLED,
+                                           data=dataclasses.asdict(attestation)))
         return app

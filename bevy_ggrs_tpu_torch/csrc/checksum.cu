@@ -44,6 +44,10 @@
 // Save mode copies every part's bytes into the ring row (16-byte vectors
 // where both sides are aligned, bytes otherwise) with all threads of the
 // cluster, and writes the row's frame and digest and the caller's output.
+// Over a batch of B worlds (the speculative rollout's branches) world row b
+// is saved into ring b of a [B, depth] stack, through the header's batch
+// steps: one launch saves every branch of a speculative frame, with the
+// bits of B single-world saves (the lanes are wrapping integer sums).
 // Guard mode hashes a ring row through pointers the host offset to it, and
 // writes 1 when the row does not hold the frame or its digest equals the
 // stored one, else 0.
@@ -81,15 +85,22 @@ struct Part {
 };
 
 struct Header {
-  long long* lanes;        // checksum: [B, 2]; save: the returned [2]
-  long long* lanes_ring;   // save: ring.checksums[slot]
+  long long* lanes;        // checksum and save: [B, 2]
+  long long* lanes_ring;   // save: ring 0's checksums[slot]
   long long* lanes_out;    // save: the caller's out, or null
-  int* frame_out;          // save: ring.frames[slot]
+  int* frame_out;          // save: ring 0's frames[slot]
   const long long* expect; // guard: ring.checksums[row]
   const int* frames_row;   // guard: ring.frames[row]
   int* flag;               // guard: 1 clean or not resident, 0 corrupt
   int n_parts, cap, mode, frame, resource_words, alive_part, first_resource;
   uint32_t const_lo, const_hi;  // the resources' constant terms, summed
+  // Save: world row b goes to ring b of a [B, depth] stack. dst, lanes_ring
+  // and frame_out point at ring 0's row; these are the steps to ring b's
+  // (all 0 for a single ring, where b is 0).
+  long long dst_rows;           // ring rows between two rings' (depth)
+  long long lanes_ring_stride;  // int64s between two rings' digests
+  long long frame_stride;       // int32s between two rings' frames
+  long long lanes_out_stride;   // int64s between two worlds' rows of out
 };
 
 template <int K>
@@ -240,10 +251,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
 
-  if (h.mode == kSave) {  // one world row: b == 0
+  if (h.mode == kSave) {  // world row b into row `frame % depth` of ring b
     const int t = rank * T + (int)threadIdx.x, stride = P * T;
-    for (int i = 0; i < h.n_parts; ++i)
-      copy_bytes(s_parts[i].dst, s_parts[i].src, s_parts[i].row_bytes, t, stride);
+    for (int i = 0; i < h.n_parts; ++i) {
+      const Part& q = s_parts[i];
+      copy_bytes(q.dst + b * h.dst_rows * q.row_bytes, q.src + b * q.row_bytes,
+                 q.row_bytes, t, stride);
+    }
   }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -278,13 +292,15 @@ __global__ void __launch_bounds__(kMaxThreads)
       h.lanes[2 * b + 1] = ld;
     }
     if (h.mode == kSave) {
-      h.lanes_ring[0] = la;
-      h.lanes_ring[1] = ld;
+      long long* ring_lanes = h.lanes_ring + b * h.lanes_ring_stride;
+      ring_lanes[0] = la;
+      ring_lanes[1] = ld;
       if (h.lanes_out != nullptr) {
-        h.lanes_out[0] = la;
-        h.lanes_out[1] = ld;
+        long long* out = h.lanes_out + b * h.lanes_out_stride;
+        out[0] = la;
+        out[1] = ld;
       }
-      *h.frame_out = h.frame;
+      h.frame_out[b * h.frame_stride] = h.frame;
     }
   }
   cluster.sync();  // no block leaves while rank 0 reads its lanes

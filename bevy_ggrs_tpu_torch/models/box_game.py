@@ -7,6 +7,11 @@ translation and is clamped to the plane; a ``frame_count`` resource counts
 frames. Every operation is one correctly rounded float32 operation, in the
 JAX step's order, so the two are bitwise equal on the CPU and on a GPU
 (the JAX package's ``step_np`` is the NumPy oracle for both).
+
+The systems take a world with leading axes as well: a ``[B, capacity]``
+world (the speculative rollout's branches, where JAX vmaps the step) with
+``bits[B, players]``, each branch reading its own inputs. Every operation
+is elementwise, so each branch's bits equal the single world's step.
 """
 
 from __future__ import annotations
@@ -94,20 +99,21 @@ def _magnitude(vx: torch.Tensor, vy: torch.Tensor, vz: torch.Tensor) -> torch.Te
 
 def move_cube_system(state: WorldState, inputs: PlayerInputs) -> WorldState:
     """All cubes in one masked update; non-player and dead slots pass
-    through unchanged."""
+    through unchanged. Over leading axes (``[..., capacity]``), each world
+    reads its own ``bits[..., players]``."""
     t = state.components["translation"]
     v = state.components["velocity"]
     handle = state.components["player_handle"]
 
     safe_handle = handle.clamp(0, inputs.num_players - 1).long()
-    inp = inputs.bits[safe_handle].to(torch.int32)  # [capacity]
+    inp = torch.gather(inputs.bits, -1, safe_handle).to(torch.int32)  # [..., capacity]
 
     up = (inp & INPUT_UP) != 0
     down = (inp & INPUT_DOWN) != 0
     left = (inp & INPUT_LEFT) != 0
     right = (inp & INPUT_RIGHT) != 0
 
-    vx, vy, vz = v[:, 0], v[:, 1], v[:, 2]
+    vx, vy, vz = v[..., 0], v[..., 1], v[..., 2]
     # Exclusive press accelerates; neither pressed -> friction; both -> as-is.
     vz = torch.where(up & ~down, vz - _SPEED, vz)
     vz = torch.where(down & ~up, vz + _SPEED, vz)
@@ -124,12 +130,12 @@ def move_cube_system(state: WorldState, inputs: PlayerInputs) -> WorldState:
                          torch.ones_like(mag))
     vx, vy, vz = vx * factor, vy * factor, vz * factor
 
-    tx = torch.clamp(t[:, 0] + vx, -_HALF, _HALF)
-    ty = t[:, 1] + vy
-    tz = torch.clamp(t[:, 2] + vz, -_HALF, _HALF)
+    tx = torch.clamp(t[..., 0] + vx, -_HALF, _HALF)
+    ty = t[..., 1] + vy
+    tz = torch.clamp(t[..., 2] + vz, -_HALF, _HALF)
 
-    new_t = torch.stack([tx, ty, tz], dim=1)
-    new_v = torch.stack([vx, vy, vz], dim=1)
+    new_t = torch.stack([tx, ty, tz], dim=-1)
+    new_v = torch.stack([vx, vy, vz], dim=-1)
 
     sel = (
         state.alive
@@ -137,7 +143,7 @@ def move_cube_system(state: WorldState, inputs: PlayerInputs) -> WorldState:
         & state.present["translation"]
         & state.present["velocity"]
         & (handle >= 0)
-    )[:, None]
+    )[..., None]
     return state.replace(
         components={
             **state.components,

@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 import torch
 
 from bevy_ggrs_tpu_torch.ops import _build
+from bevy_ggrs_tpu_torch.ops.pairwise import check_no_branch_axis
 
 # Pair elements ([cells, K, M]) per chunk of the plain version: at the
 # boids-32,768 grid a whole [C, K, M] intermediate is 184.5 M floats, and
@@ -80,7 +81,10 @@ def cell_slot_forces(kernel, rowvals: Dict[str, torch.Tensor],
     A CPU tensor takes :func:`cell_slot_forces_plain`; a CUDA tensor
     launches the pair kernel's instantiation of ``csrc/cell_gather.cu`` on
     the current stream, and a pair kernel without one, or anything else the
-    kernel cannot take, raises."""
+    kernel cannot take, raises. Tables with a leading branch axis raise
+    ``NotImplementedError`` on every device."""
+    check_no_branch_axis("row px", rowvals["px"], 2)
+    check_no_branch_axis("col px", colvals["px"], 2)
     c, k = rowvals["px"].shape
     m = colvals["px"].shape[1]
     device = rowvals["px"].device

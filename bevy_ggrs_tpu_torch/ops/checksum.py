@@ -21,12 +21,20 @@ modes share the kernel and the C entry (:func:`world_checksum`):
   axis;
 - ``save``: also copies every part's bytes into ring row
   ``frame % depth`` and writes ``ring.frames`` and ``ring.checksums`` there;
+  a ``[B]`` world (the speculative rollout's branches) saves into a
+  ``[B, depth]`` stack of rings, world ``b`` into ring ``b``, in the same
+  one launch;
 - ``guard``: hashes a ring row in place and compares it with the digest
   and frame stored at save time, giving one ``int32`` (1 clean or not
   resident, 0 corrupt).
 
 A CPU world takes the plain version of each mode (the word matrix, the
 plain hash and ``tree_map`` copies), which nothing on the card's path uses.
+
+The guard and the ring load are not batched over branches: the fused
+tick's absorb (``fused.absorb_branch_frames``) copies a branch's saved
+rows into the session's ring together with the digests the batched save
+stored, so the guard covers absorbed rows as it covers serial ones.
 """
 
 from __future__ import annotations
@@ -110,13 +118,17 @@ def checksum_plain(state: WorldState) -> torch.Tensor:
 def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the ``save`` mode: the checksum, a ``copy_`` per
-    leaf into ring row ``frame % depth``, the row's frame and digest, and
+    leaf into ring row ``frame % depth`` (of every ring of a ``[B,
+    depth]`` stack, for a ``[B]`` world), the row's frame and digest, and
     ``out`` when given. Returns the lanes as a tensor of their own."""
-    slot = int(frame) % ring.depth
+    lead = tuple(state.alive.shape[:-1])
+    if lead != tuple(ring.frames.shape[:-1]):
+        raise ValueError("save takes a world of the ring's structure, leading axes and device")
+    row = (slice(None),) * len(lead) + (int(frame) % ring.depth,)
     cs = checksum_plain(state)
-    tree_map(lambda r, s: r[slot].copy_(s), ring.states, state)
-    ring.frames[slot] = int(frame)
-    ring.checksums[slot] = cs
+    tree_map(lambda r, s: r[row].copy_(s), ring.states, state)
+    ring.frames[row] = int(frame)
+    ring.checksums[row] = cs
     if out is not None:
         out.copy_(cs)
     return cs
@@ -160,10 +172,10 @@ class _Header(ctypes.Structure):
     """Everything but the parts (csrc/checksum.cu ``Header``)."""
 
     _fields_ = [
-        ("lanes", ctypes.c_void_p),  # checksum: int64[B, 2]; save: int64[2]
-        ("lanes_ring", ctypes.c_void_p),  # save: ring.checksums[slot]
+        ("lanes", ctypes.c_void_p),  # checksum and save: int64[B, 2]
+        ("lanes_ring", ctypes.c_void_p),  # save: ring 0's checksums[slot]
         ("lanes_out", ctypes.c_void_p),  # save: the caller's out, or null
-        ("frame_out", ctypes.c_void_p),  # save: ring.frames[slot]
+        ("frame_out", ctypes.c_void_p),  # save: ring 0's frames[slot]
         ("expect", ctypes.c_void_p),  # guard: ring.checksums[row]
         ("frames_row", ctypes.c_void_p),  # guard: ring.frames[row]
         ("flag", ctypes.c_void_p),  # guard: int32[1]
@@ -176,6 +188,11 @@ class _Header(ctypes.Structure):
         ("first_resource", ctypes.c_int),
         ("const_lo", ctypes.c_uint32),
         ("const_hi", ctypes.c_uint32),
+        # save: steps from ring 0's row to ring b's in a [B, depth] stack
+        ("dst_rows", ctypes.c_longlong),
+        ("lanes_ring_stride", ctypes.c_longlong),
+        ("frame_stride", ctypes.c_longlong),
+        ("lanes_out_stride", ctypes.c_longlong),
     ]
 
 
@@ -367,17 +384,20 @@ _ring_pairs = set()  # (id(state layout), id(ring layout)) found to match
 
 
 def _ring_prepared(ring: SnapshotRing) -> Tuple[Layout, List[torch.Tensor]]:
-    """The ring's layout and tensors, with its frames and digests checked."""
-    if ring.frames.dim() != 1 or ring.frames.dtype != torch.int32:
-        raise ValueError(f"ring.frames must be int32[depth], got "
+    """The layout and tensors of a ring (``frames`` ``int32[depth]``) or
+    of a ``[B, depth]`` stack of rings, with its frames and digests
+    checked."""
+    if ring.frames.dim() not in (1, 2) or ring.frames.dtype != torch.int32:
+        raise ValueError(f"ring.frames must be int32[depth] or int32[B, depth], got "
                          f"{ring.frames.dtype}{list(ring.frames.shape)}")
-    if ring.checksums.dtype != torch.int64 or tuple(ring.checksums.shape) != (ring.depth, 2):
-        raise ValueError(f"ring.checksums must be int64[{ring.depth}, 2]")
+    lead = tuple(ring.frames.shape)
+    if ring.checksums.dtype != torch.int64 or tuple(ring.checksums.shape) != lead + (2,):
+        raise ValueError(f"ring.checksums must be int64{list(lead + (2,))}")
     if not (ring.frames.is_contiguous() and ring.checksums.is_contiguous()):
         raise ValueError("ring.frames and ring.checksums must be contiguous")
     lay, rows = _prepared(ring.states)
-    if lay.lead != (ring.depth,):
-        raise ValueError(f"ring rows lead with {list(lay.lead)}, not [{ring.depth}]")
+    if lay.lead != lead:
+        raise ValueError(f"ring rows lead with {list(lay.lead)}, not {list(lead)}")
     if not all(r.is_contiguous() for r in rows):
         raise ValueError("the ring's tensors must be contiguous")
     return lay, rows
@@ -401,12 +421,16 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
     """One launch of the checksum kernel in ``mode``:
 
     - ``"checksum"``: ``int64[*lead, 2]`` lanes of ``state``;
-    - ``"save"``: ``state`` (a single world) saved as ``frame`` into ring
-      row ``frame % depth`` (bytes, frame, digest) and its lanes, also
-      written to ``out`` when given; returns ``int64[2]`` of its own;
+    - ``"save"``: ``state`` saved as ``frame`` into ring row ``frame %
+      depth`` (bytes, frame, digest) and its lanes, also written to ``out``
+      when given; returns the lanes as a tensor of their own. A single
+      world takes a ring and gives ``int64[2]``; a ``[B]`` world takes a
+      ``[B, depth]`` stack, saves world ``b`` into ring ``b`` and gives
+      ``int64[B, 2]`` (``out`` may then be a view whose rows are strided,
+      such as ``checksums[:, t]`` of a ``[B, F, 2]`` tensor);
     - ``"guard"``: ``int32[1]``, 1 when ring row ``frame % depth`` does not
       hold ``frame`` or hashes to its stored digest, 0 when corrupt
-      (``state`` is None).
+      (``state`` is None; a single ring only).
 
     A CPU world takes the plain version of the mode; a CUDA world launches
     the kernel (``csrc/checksum.cu``) on the current stream; any other
@@ -417,6 +441,8 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
     if (state is not None, ring is not None) != wants:
         raise ValueError(f"mode {mode!r} takes {'a state' * wants[0]}"
                          f"{' and ' * all(wants)}{'a ring' * wants[1]}")
+    if mode == "guard" and ring.frames.dim() != 1:
+        raise ValueError("the guard takes a single ring, not a stack of rings")
     device = (state if state is not None else ring.states).alive.device
     if device.type == "cpu":
         if mode == "checksum":
@@ -443,6 +469,7 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
         _launch(lay, parts, header, B, device)
         return lanes
     lay, rows = _ring_prepared(ring)
+    branches = lay.lead[:-1]  # () for a single ring, (B,) for a stack
     row = int(frame) % ring.depth
     parts = lay.part_array.from_buffer_copy(lay.parts_bytes)
     header = _Header.from_buffer_copy(lay.header_bytes)
@@ -451,23 +478,28 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
     if mode == "save":
         slay, tensors = _prepared(state)
         if (id(slay), id(lay)) not in _ring_pairs:
-            if slay.lead != () or slay.parts != lay.parts or state.device != device:
-                raise ValueError("save takes a single world of the ring's structure and device")
+            if slay.lead != branches or slay.parts != lay.parts or state.device != device:
+                raise ValueError("save takes a world of the ring's structure, leading "
+                                 "axes and device")
             _ring_pairs.add((id(slay), id(lay)))
         tensors = [_slot_major(t) for t in tensors]  # held until the launch
         for p, t, r, spec in zip(parts, tensors, rows, lay.parts):
             p.src = t.data_ptr()
             p.dst = r.data_ptr() + row * spec.row_bytes
-        lanes = torch.empty((2,), dtype=torch.int64, device=device)
+        lanes = torch.empty(branches + (2,), dtype=torch.int64, device=device)
         header.lanes = lanes.data_ptr()
         header.lanes_ring = ring.checksums.data_ptr() + row * 16
         header.frame_out = ring.frames.data_ptr() + row * 4
+        header.dst_rows = header.frame_stride = ring.depth
+        header.lanes_ring_stride = 2 * ring.depth
         if out is not None:
-            if out.dtype != torch.int64 or tuple(out.shape) != (2,) or not out.is_contiguous() \
-                    or out.device != device:
-                raise ValueError(f"out must be a contiguous int64[2] on {device}")
+            if out.dtype != torch.int64 or tuple(out.shape) != branches + (2,) \
+                    or out.stride(-1) != 1 or out.device != device:
+                raise ValueError(f"out must be int64{list(branches + (2,))} on {device} "
+                                 "with contiguous lanes")
             header.lanes_out = out.data_ptr()
-        _launch(lay, parts, header, 1, device)
+            header.lanes_out_stride = out.stride(0) if branches else 0
+        _launch(lay, parts, header, math.prod(branches), device)
         return lanes
     for p, r, spec in zip(parts, rows, lay.parts):
         p.src = r.data_ptr() + row * spec.row_bytes

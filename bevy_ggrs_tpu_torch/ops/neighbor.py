@@ -44,6 +44,7 @@ from bevy_ggrs_tpu_torch.ops.cell_gather import (
     cell_slot_forces,
     cell_slot_forces_plain,
 )
+from bevy_ggrs_tpu_torch.ops.pairwise import check_no_branch_axis
 
 # Grid mode pays a sort and gathers per frame; below this entity count the
 # dense paths win outright (mode="auto" crossover).
@@ -366,7 +367,9 @@ def interact(pos, active, kernel: PairKernel,
     :func:`resolve_mode`; grid mode needs a :class:`GridConfig` or
     ``world_half`` to derive one, and ``impl`` picks the per-cell compute
     (:func:`slot_forces`). Returns ``[N, out_dim]``; with
-    ``return_grid=True``, ``(forces, NeighborGrid or None)``."""
+    ``return_grid=True``, ``(forces, NeighborGrid or None)``. ``pos`` with
+    a leading branch axis raises ``NotImplementedError``."""
+    check_no_branch_axis("pos", pos, 2)
     n = pos.shape[0]
     active_f = active.to(torch.float32)
     m = resolve_mode(mode, n)

@@ -38,11 +38,28 @@ def _squared(radius: float) -> float:
     return float(r * r)
 
 
+BRANCH_AXIS_TODO = (
+    "the force kernels take one world, and a leading branch axis (boids under "
+    "speculation) is not ported yet (ROADMAP.md §2, 'Kernel work that the "
+    "modules need', item 1)")
+
+
+def check_no_branch_axis(name: str, t: torch.Tensor, ndim: int) -> None:
+    """Raise ``NotImplementedError`` when ``t`` has more than ``ndim`` axes:
+    a world stacked over speculative branches, which the force kernels
+    and their plain versions do not take yet."""
+    if t.dim() > ndim:
+        raise NotImplementedError(f"{name} has shape {list(t.shape)}: {BRANCH_AXIS_TODO}")
+
+
 def _check_inputs(**expected) -> torch.device:
     """Check that every ``name=(tensor, shape)`` is float32 of that shape on
-    one device, and return the device. A CPU device passes as it is; any
-    other must be CUDA, with contiguous tensors and at least one boid, or
-    this raises: the wrappers launch their kernel there or fail."""
+    one device, and return the device. A tensor with a leading branch axis
+    raises ``NotImplementedError`` on every device. A CPU device passes as
+    it is; any other must be CUDA, with contiguous tensors and at least one
+    boid, or this raises: the wrappers launch their kernel there or fail."""
+    for name, (t, shape) in expected.items():
+        check_no_branch_axis(name, t, len(shape))
     device = next(iter(expected.values()))[0].device
     for name, (t, shape) in expected.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape:

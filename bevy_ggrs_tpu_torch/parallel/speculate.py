@@ -1,0 +1,229 @@
+"""Speculative branch batching: the serial replay loop, turned into a batch axis.
+
+Counterpart of ``bevy_ggrs_tpu/parallel/speculate.py``. The reference
+predicts remote inputs with one hypothesis, repeat-last-input, and pays a
+serial replay when it is wrong. Here B candidate input futures roll forward
+at once over a leading ``[B]`` branch axis of the world, and when the real
+inputs arrive the branch whose prefix matches is selected: recovery from a
+misprediction becomes a copy, not a resimulation.
+
+1. :func:`enumerate_branches`: the candidate input tensor ``bits[B, F, P,
+   ...]``. Branch 0 is the reference's own policy (repeat the last input).
+2. :class:`SpeculativeExecutor`: every branch rolls forward F frames from
+   the same start state, each frame's save of all B branches one launch of
+   the checksum kernel (``rollout.rollout_burst`` over the ``[B]`` world),
+   giving per-branch rings and per-branch checksum streams.
+3. :func:`match_branch`: host-side longest-prefix match of the confirmed
+   inputs against the branch tensor.
+4. :meth:`SpeculativeExecutor.commit`: a copy of the matched branch's
+   ring and state; :func:`merge_rings` overlays a branch ring's saved rows
+   onto the session's ring.
+
+The JAX package's samplers draw from ``jax.random``; the port's draw from a
+``torch.Generator``, with the same structure (branch 0 repeat-last) and
+reproducible from its seed, and cannot be bitwise JAX's draws. A device
+mesh (``mesh=``) is not ported yet (ROADMAP.md, port queue item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bevy_ggrs_tpu_torch.rollout import rollout_burst
+from bevy_ggrs_tpu_torch.schedule import PREDICTED, Schedule
+from bevy_ggrs_tpu_torch.state import (
+    SnapshotRing,
+    WorldState,
+    branch_rings,
+    broadcast_branches,
+    select_branch,
+    tree_map,
+)
+
+# A branch sampler maps (generator, last_bits[P, ...], B, F) -> bits[B, F,
+# P, ...]: the Monte Carlo input tree.
+BranchSampler = Callable[[torch.Generator, torch.Tensor, int, int], torch.Tensor]
+
+
+def repeat_last_sampler(generator, last_bits, num_branches: int, num_frames: int):
+    """Every branch repeats the last input: the degenerate tree (all
+    branches identical; the reference's prediction)."""
+    del generator
+    last_bits = torch.as_tensor(last_bits)
+    return last_bits[None, None].expand(
+        (num_branches, num_frames) + tuple(last_bits.shape)).clone()
+
+
+def bitmask_sampler(num_bits: int = 4, keep_prob: float = 0.5) -> BranchSampler:
+    """Monte Carlo tree over ``u8``-bitmask inputs (box_game-style).
+
+    Per branch, frame and player: with ``keep_prob`` keep the previous
+    frame's input, else draw a uniform mask over the low ``num_bits`` bits.
+    Branch 0 is pinned to repeat-last, so the tree always contains the
+    reference's prediction. Draws come from the caller's generator."""
+
+    def sample(generator, last_bits, num_branches: int, num_frames: int):
+        last_bits = torch.as_tensor(last_bits)
+        shape = (num_branches, num_frames) + tuple(last_bits.shape)
+        keep = torch.rand(shape, generator=generator) < keep_prob
+        rand = torch.randint(0, 1 << num_bits, shape, generator=generator,
+                             dtype=torch.int32).to(last_bits.dtype)
+        cur = last_bits.expand((num_branches,) + tuple(last_bits.shape))
+        frames = []
+        for t in range(num_frames):
+            cur = torch.where(keep[:, t], cur, rand[:, t])
+            frames.append(cur)
+        bits = torch.stack(frames, dim=1)
+        bits[0] = last_bits
+        return bits
+
+    return sample
+
+
+def enumerate_branches(
+    generator,
+    last_bits,
+    num_branches: int,
+    num_frames: int,
+    sampler: Optional[BranchSampler] = None,
+) -> torch.Tensor:
+    """Candidate input tensor ``[B, F, P, ...]`` on the host; branch 0 is
+    repeat-last."""
+    last_bits = torch.as_tensor(np.asarray(last_bits))
+    if sampler is None:
+        sampler = repeat_last_sampler
+    return sampler(generator, last_bits, num_branches, num_frames)
+
+
+def match_branch(branch_bits, confirmed_bits) -> Tuple[int, int]:
+    """Longest-prefix match: which branch predicted the confirmed inputs?
+
+    ``branch_bits[B, F, P, ...]`` against ``confirmed_bits[K, P, ...]``
+    (K <= F confirmed frames). Returns ``(branch, depth)``: the branch
+    agreeing with the most leading confirmed frames, and how many agree.
+    Ties break toward branch 0 (the repeat-last baseline). The JAX
+    package's NumPy body, which its native matcher equals bitwise."""
+    bb = np.asarray(branch_bits)
+    cb = np.asarray(confirmed_bits)
+    k = cb.shape[0]
+    if k == 0:
+        return 0, 0
+    return _match_branch_numpy(bb, cb, k)
+
+
+def _match_branch_numpy(bb: np.ndarray, cb: np.ndarray, k: int) -> Tuple[int, int]:
+    eq = bb[:, :k].reshape(bb.shape[0], k, -1) == cb.reshape(1, k, -1)
+    frame_ok = eq.all(axis=2)  # [B, K]
+    # Depth of agreement = leading run of True per branch.
+    depth = np.where(frame_ok.all(axis=1), k, frame_ok.argmin(axis=1))
+    best = int(depth.argmax())  # argmax ties break low: branch 0
+    return best, int(depth[best])
+
+
+@dataclasses.dataclass
+class SpecResult:
+    """One speculative rollout: B branches × F frames from one start state.
+
+    ``rings`` is a ``[B, F]`` stack of rings and ``states`` a ``[B]``
+    world; ``checksums[B, F, 2]`` is the per-branch stream of saved-frame
+    lanes; ``branch_bits`` (host) is the input tensor that produced it;
+    ``start_frame`` labels the first saved frame. Every rollout owns its
+    tensors: a later rollout never writes them."""
+
+    rings: SnapshotRing
+    states: WorldState
+    checksums: torch.Tensor
+    branch_bits: Any
+    start_frame: int
+    num_frames: int
+
+
+def rollout_branches(schedule: Schedule, state: WorldState, start_frame: int,
+                     branch_bits: torch.Tensor, status: torch.Tensor,
+                     depth: int) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+    """Every branch of ``branch_bits[B, F, ...]`` from the single world
+    ``state``: fresh ``[B, depth]`` rings, then (save, advance) × F, the
+    semantics of F serial SaveGameState/AdvanceFrame pairs per branch.
+    Returns ``(rings, states[B], checksums[B, F, 2])``."""
+    B, F = int(branch_bits.shape[0]), int(branch_bits.shape[1])
+    rings = branch_rings(state, B, depth)
+    states = broadcast_branches(state, B)
+    mask = np.ones(F, dtype=bool)
+    return rollout_burst(schedule, rings, states, start_frame, branch_bits, status,
+                         mask, mask)
+
+
+class SpeculativeExecutor:
+    """B-branch × F-frame rollout bound to one schedule and shape."""
+
+    def __init__(self, schedule: Schedule, num_branches: int, max_frames: int,
+                 mesh=None, tracer=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a speculative rollout over a device mesh is not ported yet "
+                "(ROADMAP.md, port queue item 8: 'Sharding')")
+        from bevy_ggrs_tpu_torch.obs.trace import null_tracer
+
+        self.schedule = schedule
+        self.num_branches = int(num_branches)
+        self.max_frames = int(max_frames)
+        self.tracer = tracer if tracer is not None else null_tracer
+
+    def run(self, state: WorldState, start_frame: int, branch_bits,
+            status=None) -> SpecResult:
+        """Roll all branches forward from ``state`` at ``start_frame``.
+        ``branch_bits[B, F, P, ...]`` (see :func:`enumerate_branches`);
+        ``status[F, P]`` defaults to all PREDICTED (speculative frames are
+        unconfirmed)."""
+        host_bits = np.ascontiguousarray(np.asarray(branch_bits))
+        b, f = host_bits.shape[0], host_bits.shape[1]
+        if b != self.num_branches or f != self.max_frames:
+            raise ValueError(f"branch_bits [{b}, {f}, ...] != configured "
+                             f"[{self.num_branches}, {self.max_frames}, ...]")
+        device = state.device
+        if status is None:
+            status = np.full((f, host_bits.shape[2]), PREDICTED, dtype=np.int32)
+        with self.tracer.span("spec_branch_dispatch", branches=b, frames=f):
+            rings, states, checksums = rollout_branches(
+                self.schedule, state, int(start_frame),
+                torch.as_tensor(host_bits, device=device),
+                torch.as_tensor(np.asarray(status, np.int32), device=device),
+                self.max_frames)
+        return SpecResult(rings=rings, states=states, checksums=checksums,
+                          branch_bits=host_bits, start_frame=int(start_frame),
+                          num_frames=f)
+
+    def commit(self, result: SpecResult, branch: int):
+        """Copies of branch ``branch``'s ring and state."""
+        with self.tracer.span("spec_branch_commit"):
+            return select_branch(result.rings, branch), select_branch(result.states, branch)
+
+
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def merge_rings(main: SnapshotRing, spec: SnapshotRing) -> SnapshotRing:
+    """Overlay the saved rows of ``spec`` (a committed speculative ring)
+    onto the session's ring ``main``, in place, and return ``main``: rows
+    ``spec`` saved (``frames >= 0``) win; the others keep ``main``'s
+    history. The rings must share their depth."""
+    if main.depth != spec.depth:
+        raise ValueError(f"ring depth mismatch: {main.depth} != {spec.depth}")
+    take = spec.frames >= 0
+
+    def sel(m, s):
+        mask = take.reshape((-1,) + (1,) * (s.dim() - 1))
+        # torch's unsigned 32-bit type has no ``where``: select its bits.
+        bits = _SIGNED.get(m.dtype)
+        if bits is not None:
+            m, s = m.view(bits), s.view(bits)
+        m.copy_(torch.where(mask, s, m))
+
+    tree_map(sel, main.states, spec.states)
+    main.frames.copy_(torch.where(take, spec.frames, main.frames))
+    main.checksums.copy_(torch.where(take[:, None], spec.checksums, main.checksums))
+    return main

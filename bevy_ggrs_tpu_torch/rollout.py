@@ -11,6 +11,13 @@ The JAX package scans a burst padded to ``max_frames`` so every burst hits
 one compiled executable. PyTorch runs eagerly, so the masks stay on the
 host and steps with neither flag set are skipped; ``checksums`` still
 comes back shaped ``[max_frames, 2]`` with zeros where nothing was saved.
+
+The speculative rollout runs the same burst over a ``[B]`` world, where
+JAX vmaps it over the branch axis: bits ``[B, F, players, ...]``, the
+status ``[F, players]`` shared by every branch, rings a ``[B, depth]``
+stack and the lanes ``[B, F, 2]``. Each frame's save of all B branches is
+one launch of the checksum kernel, writing its lanes straight into
+``checksums[:, t]``.
 """
 
 from __future__ import annotations
@@ -29,22 +36,27 @@ def rollout_burst(
     ring: SnapshotRing,
     state: WorldState,
     start_frame: int,
-    bits: torch.Tensor,  # [T, num_players, *input_shape], on state's device
-    status: torch.Tensor,  # int32[T, num_players]
+    bits: torch.Tensor,  # [T, num_players, *input_shape] ([B, T, ...] for branches)
+    status: torch.Tensor,  # int32[T, num_players], shared by every branch
     save_mask: np.ndarray,  # bool[T], host
     adv_mask: np.ndarray,  # bool[T], host
 ) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Run the ``T`` steps; returns ``(ring, state, checksums[T, 2])`` with
     ``checksums[t]`` the checksum saved at step ``t`` (0 where
-    ``save_mask[t]`` is False). The ring is updated in place."""
-    checksums = torch.zeros((len(save_mask), 2), dtype=torch.int64,
+    ``save_mask[t]`` is False). The ring is updated in place. A ``[B]``
+    world runs every branch at once on its own ``bits[b]``, into a ``[B,
+    depth]`` stack of rings, with ``checksums[B, T, 2]``."""
+    lead = tuple(state.alive.shape[:-1])
+    at = (slice(None),) * len(lead)  # the branch axes come before the time axis
+    checksums = torch.zeros(lead + (len(save_mask), 2), dtype=torch.int64,
                             device=state.device)
     frame = int(start_frame)
     for t, (save, adv) in enumerate(zip(save_mask, adv_mask)):
         if save:
-            ring, _ = ring_save(ring, state, frame, out=checksums[t])
+            ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
         if adv:
-            state = schedule(state, PlayerInputs(bits=bits[t], status=status[t]))
+            st = status[t].expand(lead + tuple(status.shape[1:]))
+            state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
             frame += 1
     return ring, state, checksums
 

@@ -12,6 +12,13 @@ Invariants enforced:
 - ``AdvanceFrame`` bumps the frame by one;
 - ``LoadGameState`` rewinds the frame.
 
+The speculative runner (``spec_runner.py``) builds on this one: it keeps
+an as-used input log (``_input_log``, None here), hands a missed match's
+detail to the serial path's ledger entry (``_ledger_note``) and drops its
+speculation when the ring is replaced from outside the request protocol
+(``invalidate_speculation``, called by :meth:`RollbackRunner.restore_state`
+and :meth:`RollbackRunner.attest_and_repair`).
+
 Checksums of saved frames go back to the session through
 ``session.report_checksum(frame, cs)``. That read is a device-to-host
 sync per request list, and so is the restore guard's digest read at every
@@ -79,6 +86,9 @@ class RollbackRunner:
         self.metrics = metrics if metrics is not None else null_metrics
         self.tracer = tracer if tracer is not None else null_tracer
         self.ledger = ledger if ledger is not None else null_ledger
+        # The speculative matcher's one-shot detail for the serial path's
+        # ledger entry after a missed match (one entry per rollback).
+        self._ledger_note: Optional[dict] = None
         self.device = resolve_device(device)
         self.schedule = schedule
         self.num_players = int(num_players)
@@ -106,6 +116,13 @@ class RollbackRunner:
         # Bursts dispatched to the device.
         self.device_dispatches_total = 0
         self.ticks_total = 0
+        # Saves into the session's ring and restore guards run: each is one
+        # launch of the checksum kernel on a CUDA world.
+        self.saves_total = 0
+        self.restore_guards_total = 0
+        # The speculative runner's as-used input log, frame -> bits (None:
+        # not kept).
+        self._input_log: Optional[dict] = None
 
     # ------------------------------------------------------------------
 
@@ -167,6 +184,8 @@ class RollbackRunner:
                 )
             save_frames.append(step.save_frame)
             if step.adv is not None:
+                if self._input_log is not None:
+                    self._input_log[frame] = np.asarray(step.adv.bits)
                 self._used_inputs[frame] = (
                     np.asarray(step.adv.bits),
                     np.asarray(step.adv.status, np.int32),
@@ -175,6 +194,7 @@ class RollbackRunner:
 
         n = len(steps)
         if load_frame is not None and self.verify_restores:
+            self.restore_guards_total += 1
             if not integrity.verify_row(self.ring, load_frame):
                 # The rollback's target row no longer hashes to its
                 # save-time digest: repair the ring first (raises
@@ -201,6 +221,7 @@ class RollbackRunner:
             save_mask = np.array([s.save_frame is not None for s in steps])
             adv_mask = np.array([s.adv is not None for s in steps])
             self.device_dispatches_total += 1
+            self.saves_total += int(save_mask.sum())
             with self.metrics.timer("dispatch"), self.tracer.span(
                 "dispatch", frames=n
             ):
@@ -238,8 +259,15 @@ class RollbackRunner:
             self.metrics.count("rollbacks")
             self.metrics.count("rollback_frames", depth)
             self.metrics.observe("rollback_depth", depth)
-            self.ledger.record("unmatched", depth=depth,
-                               frames_resimulated=depth, load_frame=load_frame)
+            # The outcome detail comes from the one-shot note when the
+            # speculative matcher ran and missed; a rollback that reached
+            # no matcher is "unmatched".
+            note, self._ledger_note = self._ledger_note, None
+            note = note or {}
+            self.ledger.record(note.pop("outcome", "unmatched"), depth=depth,
+                               frames_resimulated=depth, load_frame=load_frame, **note)
+        else:
+            self._ledger_note = None
         self.frame = frame
         horizon = self.frame - (self.max_prediction + 4)
         for f in [f for f in self._used_inputs if f < horizon]:
@@ -308,6 +336,7 @@ class RollbackRunner:
                 bits = np.stack([b for b, _ in chunk])
                 status = np.stack([st for _, st in chunk])
                 self.device_dispatches_total += 1
+                self.saves_total += take
                 self.ring, self.state, _cs = self.executor.run(
                     self.ring, self.state, pos, bits, status,
                     n_frames=take,
@@ -335,6 +364,10 @@ class RollbackRunner:
             "bitwise": report["bitwise"],
             "field": report["first_corrupt_field"],
         })
+        invalidate = getattr(self, "invalidate_speculation", None)
+        if invalidate is not None:
+            # A pending rollout was built from the pre-repair buffers.
+            invalidate()
         return report
 
     # ------------------------------------------------------------------
@@ -346,6 +379,14 @@ class RollbackRunner:
         self.state = tree_map(lambda x: x.to(self.device).clone(), state)
         self.ring = ring_init(self.state, self.max_prediction + 1)
         self.frame = int(frame)
+        if self._input_log is not None:
+            # Inputs logged past the checkpoint belong to the abandoned
+            # timeline; the replay after the restore logs them again.
+            for f in [f for f in self._input_log if f >= frame]:
+                del self._input_log[f]
+        invalidate = getattr(self, "invalidate_speculation", None)
+        if invalidate is not None:
+            invalidate()
         self.metrics.count("state_restores")
 
     def warmup(self) -> None:

@@ -42,12 +42,12 @@ class PlayerInputs:
     """Inputs of all players for one simulated frame: ``bits[p]`` is
     player ``p``'s payload, ``status[p]`` its input status."""
 
-    bits: torch.Tensor  # [num_players, *input_shape]
-    status: torch.Tensor  # int32[num_players]
+    bits: torch.Tensor  # [num_players, *input_shape]; [B, num_players, ...] for branches
+    status: torch.Tensor  # int32[num_players]; [B, num_players] for branches
 
     @property
     def num_players(self) -> int:
-        return self.status.shape[0]
+        return self.status.shape[-1]
 
 
 System = Callable[[WorldState, PlayerInputs], WorldState]

@@ -211,7 +211,7 @@ class PyTracker:
 
 # The session builds its queues and its tracker through these factories.
 # They return the Python classes: the native data plane is not ported yet
-# (ROADMAP.md, port queue item 2).
+# (ROADMAP.md, port queue item 3).
 
 
 def make_queue_set(zero: np.ndarray, delays: Sequence[int]) -> PyQueueSet:

@@ -12,7 +12,14 @@ of the world is a structure of arrays kept on one device:
 
 "Save" writes one row of a stacked ring (:class:`SnapshotRing`), "load"
 copies one row out, and the checksum is the same two-lane murmur3 wrapping
-sum as the JAX package's, bit for bit.
+sum as the JAX package's, bit for bit. The speculative rollout's worlds
+carry a leading ``[B]`` branch axis, and its rings are a ``[B, depth]``
+stack (:func:`branch_rings`), saved all at once by :func:`ring_save`.
+
+Rings are written in place, where the JAX package's are values: a caller
+that needs an older ring beside a newer one clones it
+(:func:`clone_ring`), and every read of one branch or one row
+(:func:`select_branch`, :func:`ring_load`) returns a copy.
 
 torch's ``uint32`` stores, copies and views, and has ``*``, ``^`` and
 ``sum``, but no ``+``, shifts, comparisons or ``where`` on the CPU; so the
@@ -555,11 +562,12 @@ def checksum_breakdown(state: WorldState) -> Dict[str, int]:
 
 @dataclasses.dataclass(frozen=True)
 class SnapshotRing:
-    """Device-resident ring of world states, indexed ``frame % depth``."""
+    """Device-resident ring of world states, indexed ``frame % depth``;
+    or a ``[B, depth]`` stack of rings, one per speculative branch."""
 
-    states: WorldState  # every tensor gains a leading [depth] axis
-    frames: torch.Tensor  # int32[depth], -1 = empty
-    checksums: torch.Tensor  # int64[depth, 2]: [lo, hi] 32-bit lanes
+    states: WorldState  # every tensor gains a leading [depth] (or [B, depth]) axis
+    frames: torch.Tensor  # int32[depth] (or [B, depth]), -1 = empty
+    checksums: torch.Tensor  # int64[depth, 2] (or [B, depth, 2]): [lo, hi] 32-bit lanes
 
     @property
     def depth(self) -> int:
@@ -581,6 +589,45 @@ def ring_init(state: WorldState, depth: int) -> SnapshotRing:
     )
 
 
+def branch_rings(state: WorldState, num_branches: int, depth: int) -> SnapshotRing:
+    """A ``[num_branches, depth]`` stack of empty rings for worlds shaped
+    like ``state`` (a single world): frames -1 and digests 0. The rows'
+    memory is allocated and not filled: only saved rows (frames >= 0) are
+    ever read, and the speculative rollout saves every row of its rings
+    before anything reads them."""
+    lead = (int(num_branches), int(depth))
+    return SnapshotRing(
+        states=tree_map(lambda x: torch.empty(lead + x.shape, dtype=x.dtype,
+                                              device=x.device), state),
+        frames=torch.full(lead, -1, dtype=torch.int32, device=state.device),
+        checksums=torch.zeros(lead + (2,), dtype=torch.int64, device=state.device),
+    )
+
+
+def broadcast_branches(state: WorldState, num_branches: int) -> WorldState:
+    """``num_branches`` copies of a single world as one ``[B]`` world, each
+    branch its own contiguous memory."""
+    return tree_map(lambda x: x[None].expand((int(num_branches),) + x.shape).contiguous(),
+                    state)
+
+
+def select_branch(tree, branch: int):
+    """Branch ``branch`` of a ``[B]`` world or of a ``[B, depth]`` stack of
+    rings, as a copy: later saves into the stack never reach it."""
+    b = int(branch)
+    if isinstance(tree, SnapshotRing):
+        return SnapshotRing(states=tree_map(lambda x: x[b].clone(), tree.states),
+                            frames=tree.frames[b].clone(),
+                            checksums=tree.checksums[b].clone())
+    return tree_map(lambda x: x[b].clone(), tree)
+
+
+def clone_ring(ring: SnapshotRing) -> SnapshotRing:
+    """A copy of ``ring`` in memory of its own."""
+    return SnapshotRing(states=tree_map(torch.clone, ring.states),
+                        frames=ring.frames.clone(), checksums=ring.checksums.clone())
+
+
 def ring_save(
     ring: SnapshotRing, state: WorldState, frame: int,
     out: Optional[torch.Tensor] = None,
@@ -588,11 +635,14 @@ def ring_save(
     """Save ``state`` as frame ``frame``; returns ``(ring, checksum)``,
     the checksum a tensor of its own (never a view of ``ring.checksums``,
     which a later save into the same row rewrites), also written to
-    ``out`` (``int64[2]``) when given.
+    ``out`` (``int64[2]``) when given. A ``[B]`` world saves into a ``[B,
+    depth]`` stack of rings, branch ``b`` into ring ``b``, and its checksum
+    and ``out`` are ``int64[B, 2]``.
 
     Updates ``ring`` in place and returns it: no caller keeps an older
     ring. ``state`` must not share memory with the ring. For a CUDA state
-    this is one launch of the checksum kernel in its save mode
+    this is one launch of the checksum kernel in its save mode, whatever
+    the number of branches
     (:func:`bevy_ggrs_tpu_torch.ops.checksum.world_checksum`): the bytes,
     the frame and the digest of the row in one pass; a CPU state takes its
     plain version."""

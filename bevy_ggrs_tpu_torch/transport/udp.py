@@ -4,7 +4,7 @@
 Counterpart of ``bevy_ggrs_tpu/transport/udp.py``, pure Python: one
 ``recvfrom`` per datagram. The JAX package can drain through a native
 ``recvmmsg`` poller; the port's copy of that poller is not written yet
-(ROADMAP.md, port queue item 2, 'The native C++ data plane'), so
+(ROADMAP.md, port queue item 3, 'The native C++ data plane'), so
 ``use_native=True`` raises instead of falling back.
 """
 
@@ -21,7 +21,7 @@ class UdpSocket:
         if use_native:
             raise NotImplementedError(
                 "the native UDP poller is not ported yet (ROADMAP.md, port "
-                "queue item 2: 'The native C++ data plane')"
+                "queue item 3: 'The native C++ data plane')"
             )
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self._sock.setblocking(False)

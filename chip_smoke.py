@@ -19,7 +19,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    wrapper, the copy counted); a world of 202 parts, and one of 302
    refused. Under
    ``torch.profiler``, ``ring_save``, ``checksum`` and ``verify_row`` each
-   run one CUDA kernel and no host-to-device copy.
+   run one CUDA kernel and no host-to-device copy, and so does the save of
+   64 box_game branches into a ``[64, 8]`` stack of rings (phase 11).
 3. Force kernel against its plain version on the card: N in {1000, 1024,
    4096}, a row subset, a single row, five rows, 20 boids (fewer than a
    warp's 32 lanes) and 4,100 (a ragged last column tile and row block),
@@ -94,11 +95,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    compared, launches; the device's busy share of 30 render frames of the
    box_game run under ``torch.profiler``.
 
+11. Speculation on ``cuda``. The checksum kernel's save mode over a
+   branch axis against its plain version, bitwise: box_game worlds at B =
+   1 (equal to the single-world save too), 64 and 256, and random-registry
+   worlds of 1,000 slots (clusters of 8 blocks) at B = 64, into ``[B,
+   depth]`` stacks of rings (phase 2 checks under ``torch.profiler`` that
+   one such save is one CUDA kernel and no host-to-device copy); its device
+   time by graph replay
+   at B = 64 and 256 beside its bytes bound. The warmup attestation of a
+   box_game runner at B = 64, F = 8 (``ok``, ``real_checked``,
+   ``scanned_branches``), the live ring bitwise unchanged by it. Then
+   box_game, 2 peers, both ``with_speculation(64)``, 600 frames over phase
+   10's lossy loopback (no chaos) on seeded held-key runs: both RUNNING, no
+   ``DESYNC_DETECTED``, hits (full or partial) on each peer, and the
+   confirmed checksum stream bitwise equal to the same run with
+   speculation off and to the same run on the CPU; on each peer the
+   checksum kernel ran once per serial save, once per restore guard and F
+   times per rollout dispatched. Per peer, with speculation on and off:
+   ticks (mean, p99), recovery ticks (ticks that rolled back: p50, p99),
+   hits, partial hits, misses, skipped dispatches, ``spec_host_dispatch``
+   ms, and the device's busy share of one profiled render frame.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5
-and 8 and each P2P run of phase 10 and read just after (phase 10 reads
-them around each peer's update); launches made to compare a kernel with
-its plain version are not counted. The last three lines are the kernel
-table (JSON), the card's name and power limit, and the result (JSON).
+and 8 and each P2P run of phases 10 and 11 and read just after (the P2P
+runs read them around each peer's update); launches made to compare a
+kernel with its plain version are not counted. The last three lines are
+the kernel table (JSON), the card's name and power limit, and the result
+(JSON).
 """
 
 from __future__ import annotations
@@ -410,17 +433,25 @@ def device_work(fn) -> dict:
 
 def check_one_launch(ts, tck, integrity, boids) -> None:
     """``ring_save``, ``checksum`` and ``verify_row`` each run one CUDA
-    kernel and copy nothing to the device; the guard reads back 4 bytes."""
+    kernel and copy nothing to the device; the guard reads back 4 bytes.
+    So does the save of 64 box_game branches into a ``[64, 8]`` stack of
+    rings (phase 11's batched save; checked here, where the script's first
+    profiler sessions run)."""
     state = boids.make_world(1024, 2, device="cuda").commit()
     ring = ts.ring_init(state, 9)
     ts.ring_save(ring, state, 3)
+    worlds = box_branch_worlds(ts, 64, "cuda")
+    branches = branch_worlds(ts, worlds)
+    rings = ts.branch_rings(worlds[0], 64, 8)
     for name, fn, d2h in (("ring_save", lambda: ts.ring_save(ring, state, 3), 0),
                           ("checksum", lambda: tck.checksum(state), 0),
-                          ("verify_row", lambda: integrity.verify_row(ring, 3), 1)):
+                          ("verify_row", lambda: integrity.verify_row(ring, 3), 1),
+                          ("batched ring_save", lambda: ts.ring_save(rings, branches, 3), 0)):
         work = device_work(fn)
         check(len(work["kernels"]) == 1 and not work["h2d"] and len(work["d2h"]) == d2h,
               f"{name} under the profiler: {work}")
-        print(f"{name} (boids-1,024) under torch.profiler: 1 CUDA kernel "
+        world = "box_game, B=64" if name.startswith("batched") else "boids-1,024"
+        print(f"{name} ({world}) under torch.profiler: 1 CUDA kernel "
               f"({work['kernels'][0][:60]}), 0 host-to-device copies, "
               f"{len(work['d2h'])} device-to-host copies"
               + (" (the guard's int32 flag, 4 bytes)" if d2h else ""))
@@ -740,11 +771,13 @@ def drive(app, session, session_type, frames: int):
     return log, ticks
 
 
-def box_app(device, inputs=None, players: int = 2):
+def box_app(device, inputs=None, players: int = 2, speculation: int = 0):
     """A box_game app; ``inputs`` is the input system (default: keys held
-    for 20 frames in turn)."""
+    for 20 frames in turn); ``speculation`` branches (0: none), with a
+    metrics sink on the runner."""
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
 
     keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT, box_game.INPUT_DOWN,
             box_game.INPUT_LEFT, box_game.INPUT_UP | box_game.INPUT_RIGHT, 0]
@@ -768,6 +801,8 @@ def box_app(device, inputs=None, players: int = 2):
         .with_world_capacity(16)
         .with_setup_system(setup)
         .with_device(device)
+        .with_speculation(speculation)
+        .with_metrics(Metrics() if speculation else None)
         .build()
     )
 
@@ -964,15 +999,51 @@ def seeded_inputs(seed: int, frames: int, players: int):
     return lambda handle, app: table[app.session.current_frame, handle]
 
 
+def held_key_table(seed: int, frames: int, players: int) -> np.ndarray:
+    """Held keys, as players press: a key held, released, the opposite
+    key held, released, each for a seeded run of 2 to 6 frames; even
+    players press UP and DOWN, odd ones LEFT and RIGHT. A run of 6 frames
+    brings a cube to 0.03 on its axis, which then turns, so the speed stays
+    below box_game's clamp of 0.05. Each player's runs come from a
+    generator of its own, so a shorter table is a prefix of a longer one.
+    ``uint8[frames, players]``."""
+    from bevy_ggrs_tpu_torch.models import box_game
+
+    axes = ([box_game.INPUT_UP, 0, box_game.INPUT_DOWN, 0],
+            [box_game.INPUT_LEFT, 0, box_game.INPUT_RIGHT, 0])
+    table = np.zeros((frames, players), np.uint8)
+    for h in range(players):
+        rng = np.random.RandomState([seed, h])  # a player's runs, whatever ``frames``
+        cycle = axes[h % 2]
+        f, k = 0, h
+        while f < frames:
+            run = int(rng.randint(2, 7))
+            table[f:f + run, h] = cycle[k % len(cycle)]
+            f, k = f + run, k + 1
+    return table
+
+
+def held_key_runs(seed: int, frames: int, players: int):
+    """An input system reading :func:`held_key_table`."""
+    table = held_key_table(seed, frames + 64, players)
+    return lambda handle, app: table[app.session.current_frame, handle]
+
+
+# Runner counters an update's deltas are kept of.
+RUNNER_COUNTS = ("saves_total", "restore_guards_total", "spec_rollouts_total",
+                 "rollbacks_total")
+
+
 class P2PRun:
     """``players`` P2P peers (and optionally a spectator of peer 0), each an
     app of its own built by ``make_app(device, inputs)`` and driven through
     ``GGRSStage`` on one clock: the loopback network's virtual clock, or
-    the wall clock over real UDP on 127.0.0.1."""
+    the wall clock over real UDP on 127.0.0.1. ``inputs(seed, frames,
+    players)`` makes the input system (seeded random bits by default)."""
 
     def __init__(self, make_app, device, players: int, seed: int, frames: int,
                  transport: str = "loopback", chaos: bool = False,
-                 spectator: bool = False):
+                 spectator: bool = False, inputs=None):
         from bevy_ggrs_tpu_torch.app import SessionType
         from bevy_ggrs_tpu_torch.chaos import ChaosSocket
         from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
@@ -982,7 +1053,7 @@ class P2PRun:
         self.frames = frames
         self.device = torch.device(device)
         self.virtual = transport == "loopback"
-        inputs = seeded_inputs(seed, 4 * frames, players)
+        inputs = (inputs or seeded_inputs)(seed, 4 * frames, players)
         if self.virtual:
             self.net = LoopbackNetwork(**P2P_NET)
             sockets = [self.net.socket(("peer", h)) for h in range(players)]
@@ -1033,10 +1104,13 @@ class P2PRun:
             torch.cuda.synchronize()
 
     def update(self, entry, kernels, now) -> None:
-        """One render frame of one app, adding its kernel launches to the
-        entry; a render frame that ran a simulation step is a tick, and its
-        milliseconds (ending in a device synchronise) are kept."""
+        """One render frame of one app, adding its kernel launches and its
+        runner's counts to the entry; a render frame that ran a simulation
+        step is a tick, and its milliseconds (ending in a device
+        synchronise) are kept, apart too when the tick rolled back."""
+        runner = entry["app"].stage.runner
         before = {fn.__name__: fn.launches for fn in kernels}
+        counts = {k: getattr(runner, k, 0) for k in RUNNER_COUNTS}
         t0 = time.perf_counter()
         steps = entry["app"].update(now)
         self.sync()
@@ -1044,9 +1118,14 @@ class P2PRun:
         for fn in kernels:
             entry["launches"][fn.__name__] = (entry["launches"].get(fn.__name__, 0)
                                               + fn.launches - before[fn.__name__])
+        counted = entry.setdefault("counts", {})
+        for k in RUNNER_COUNTS:
+            counted[k] = counted.get(k, 0) + getattr(runner, k, 0) - counts[k]
         entry["polls"] = entry.get("polls", 0) + 1
         if steps:
             entry.setdefault("ticks", []).append(ms)
+            if runner.rollbacks_total > counts["rollbacks_total"]:
+                entry.setdefault("recovery_ticks", []).append(ms)
 
     def step(self, kernels, ts, tck) -> None:
         """One render frame of every app, in turn."""
@@ -1294,6 +1373,277 @@ def p2p_phase(kernels, force_kernels, ts, tck, tpw, box_frames: int = 600,
     if on_card:
         check_p2p_launches("p2p box_game over udp", results["udp"])
     p2p_print("p2p box_game over udp", results["udp"], card)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: speculation
+# ---------------------------------------------------------------------------
+
+SPEC_BRANCHES = 64
+SPEC_TIMED_BRANCHES = (64, 256)  # BASELINE configs 2 and "HL": 8 frames x 64 / 256
+
+
+def branch_worlds(ts, worlds):
+    """A ``[B]`` world of single worlds."""
+    return ts.tree_map(lambda *xs: torch.stack(xs).contiguous(), *worlds)
+
+
+def box_branch_worlds(ts, n: int, device, seed: int = 0):
+    """``n`` box_game worlds with seeded translations and velocities."""
+    from bevy_ggrs_tpu_torch.models import box_game
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        host = ts.to_host(box_game.make_world(2, device="cpu").commit())
+        comps = host["components"]
+        comps["translation"] += rng.uniform(-1, 1, comps["translation"].shape).astype(np.float32)
+        comps["velocity"] = rng.uniform(-0.04, 0.04, comps["velocity"].shape).astype(np.float32)
+        host["resources"]["frame_count"] = np.uint32(rng.randint(0, 1000))
+        out.append(ts.from_host(box_game.make_registry(), host, device=device))
+    return out
+
+
+def check_batched_save(ts, tck) -> None:
+    """The save mode over a branch axis against its plain version, bitwise:
+    the rings' bytes, frames and digests and the lanes, over saves that
+    wrap the rings; B = 1 also against the single-world save. The last
+    case has the spec rollout's own shape: B = 64 rings of depth F = 8,
+    each save's lanes written through the strided view ``lanes[:, t]`` of
+    an ``int64[B, F, 2]`` tensor, as ``SpecResult.checksums`` is filled."""
+    reg = random_registry(ts)
+    F = P2P_MAX_PREDICTION
+    cases = [("box_game", B, box_branch_worlds(ts, B, "cuda", seed=B), 3, False)
+             for B in (1, 64, 256)]
+    cases.append(("random registry cap 1000", 64,
+                  [ts.from_host(reg, random_host(7000 + s, 1000), device="cuda")
+                   for s in range(64)], 3, False))
+    cases.append(("box_game rollout-shaped", SPEC_BRANCHES,
+                  box_branch_worlds(ts, SPEC_BRANCHES, "cuda", seed=99), F, True))
+    for label, B, worlds, depth, strided in cases:
+        state = branch_worlds(ts, worlds)
+        rings = ts.branch_rings(worlds[0], B, depth)
+        plain = clone_ring(ts, rings)
+        frames = range(depth + 2) if strided else (0, 1, 2, 3, 7)
+        lanes_k = torch.zeros((B, depth, 2), dtype=torch.int64, device="cuda")
+        lanes_p = lanes_k.clone()
+        for frame in frames:
+            if strided:  # a view with a row step of 2 * depth
+                out, out_p = lanes_k[:, frame % depth], lanes_p[:, frame % depth]
+            else:
+                out, out_p = torch.zeros((B, 2), dtype=torch.int64, device="cuda"), None
+            before = tck.world_checksum.launches
+            _, lanes = ts.ring_save(rings, state, frame, out=out)
+            check(tck.world_checksum.launches == before + 1, f"{label} B={B}: one launch")
+            want = tck.save_plain(plain, state, frame, out=out_p)
+            check(torch.equal(lanes, want) and torch.equal(out, want),
+                  f"{label} B={B} frame {frame}: lanes differ from the plain version")
+        check(torch.equal(lanes_k, lanes_p), f"{label} B={B}: the strided lanes differ")
+        check(torch.equal(rings.frames, plain.frames)
+              and torch.equal(rings.checksums, plain.checksums)
+              and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, rings.states),
+                                                       world_leaves(ts, plain.states))),
+              f"{label} B={B}: the rings differ from the plain version's")
+        if B == 1:
+            single = ts.ring_init(worlds[0], depth)
+            for frame in frames:
+                _, one = ts.ring_save(single, worlds[0], frame)
+            check(torch.equal(rings.frames[0], single.frames)
+                  and torch.equal(rings.checksums[0], single.checksums)
+                  and torch.equal(one, lanes[0])
+                  and all(same_bytes(a[0], b) for a, b in zip(
+                      world_leaves(ts, rings.states), world_leaves(ts, single.states))),
+                  "B=1 differs from the single-world save")
+        print(f"batched save {label} B={B} depth {depth}: rings, frames, digests and lanes "
+              f"bitwise equal to the plain version over {len(frames)} saves"
+              + (", lanes through a strided [:, t] view" if strided else "")
+              + (" and to the single-world save" if B == 1 else ""))
+
+
+def batched_save_times(ts, tck) -> dict:
+    """The batched save's device time (graph replay) at the timed branch
+    counts, beside its least time: B worlds read once and written once,
+    with their digests and frames, over the memory rate, or the hash's
+    integer operations at the int32 rate."""
+    out = {}
+    for B in SPEC_TIMED_BRANCHES:
+        worlds = box_branch_worlds(ts, B, "cuda", seed=B + 1)
+        state = branch_worlds(ts, worlds)
+        rings = ts.branch_rings(worlds[0], B, 8)
+        lay = tck.layout(state)
+        world_bytes = sum(p.row_bytes for p in lay.parts)
+        words = sum(p.words for p in lay.parts if p.role not in (tck.ALIVE, tck.RESOURCE))
+        ops = (int(state.alive.sum()) * (words * CHECKSUM_OPS_PER_WORD + FMIX_OPS)
+               + B * lay.resource_words * (CHECKSUM_OPS_PER_WORD + FMIX_OPS))
+        moved = B * (2 * world_bytes + 2 * 16 + 4)
+        t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_I32_PER_S * 1e3
+        plain = clone_ring(ts, rings)
+        singles = [ts.ring_init(w, 8) for w in worlds]
+
+        def serial():  # the B single-world saves the batched save replaces
+            for ring, world in zip(singles, worlds):
+                ts.ring_save(ring, world, 3)
+
+        out[f"B{B}"] = {
+            "ms": graph_ms(lambda: ts.ring_save(rings, state, 3)),
+            "call_ms": cuda_ms(lambda: ts.ring_save(rings, state, 3)),
+            "plain_ms": cuda_ms(lambda: tck.save_plain(plain, state, 3), iters=20),
+            "serial_ms": graph_ms(serial, iters=4),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes": moved, "ops": ops, "world_bytes": world_bytes,
+        }
+        m = out[f"B{B}"]
+        print(f"batched save box_game B={B} ({world_bytes} bytes a world): device "
+              f"{m['ms']:.6f} ms (graph replay), per call with host work {m['call_ms']:.6f} ms, "
+              f"plain {m['plain_ms']:.6f} ms a call; {B} single-world saves (one graph of "
+              f"{B} launches) {m['serial_ms']:.6f} ms of device time; bound "
+              f"{m['bound_ms']:.7f} ms ({m['bound_by']}: {moved} bytes, {ops} ops)")
+    return out
+
+
+def check_attestation(ts, device: str = "cuda", branches: int = SPEC_BRANCHES,
+                      spec_frames: int = P2P_MAX_PREDICTION) -> dict:
+    """A box_game runner's warmup attestation at ``branches`` x
+    ``spec_frames``: it passes, and leaves the live ring bitwise as it
+    was."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
+
+    runner = SpeculativeRollbackRunner(
+        box_game.make_schedule(), box_game.make_world(2, device=device).commit(),
+        max_prediction=P2P_MAX_PREDICTION, num_players=2, input_spec=box_game.INPUT_SPEC,
+        num_branches=branches, spec_frames=spec_frames, device=device)
+    before = clone_ring(ts, runner.ring)
+    state = [t.clone() for t in world_leaves(ts, runner.state)]
+    t0 = time.perf_counter()
+    runner.warmup()
+    seconds = time.perf_counter() - t0
+    report = runner.attestation
+    check(report is not None and report.ok and runner.speculation_enabled,
+          f"attestation failed: {report}")
+    check(report.scanned_branches == branches and report.structured_checked,
+          f"attestation coverage: {report}")
+    check(torch.equal(before.frames, runner.ring.frames)
+          and torch.equal(before.checksums, runner.ring.checksums)
+          and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, before.states),
+                                                   world_leaves(ts, runner.ring.states)))
+          and all(same_bytes(a, b) for a, b in zip(state, world_leaves(ts, runner.state)))
+          and runner.frame == 0, "the attestation changed the live ring or state")
+    out = {"ok": report.ok, "real_checked": report.real_checked,
+           "scanned_branches": report.scanned_branches, "frames": report.frames,
+           "warmup_seconds": seconds}
+    print(f"attestation box_game B={branches} F={spec_frames} on {device}: "
+          + json.dumps(out) + "; the live ring and state bitwise unchanged")
+    return out
+
+
+def spec_peer_numbers(run: P2PRun, spec: bool) -> list:
+    """Per peer: ticks, recovery ticks, the speculation counters and the
+    host time of the speculating tick."""
+    out = []
+    for peer in run.peers:
+        runner = peer["app"].stage.runner
+        rec = np.asarray(peer.get("recovery_ticks", [0.0]))
+        entry = {"ticks": tick_stats(peer["ticks"]),
+                 "recovery_ticks": {"p50_ms": float(np.percentile(rec, 50)),
+                                    "p99_ms": float(np.percentile(rec, 99)),
+                                    "ticks": len(peer.get("recovery_ticks", []))},
+                 "rollbacks": runner.rollbacks_total,
+                 "resimulated_frames": runner.rollback_frames_total}
+        if spec:
+            host = np.asarray(runner.metrics.series.get("spec_host_dispatch_ms", [0.0]))
+            entry.update({
+                "spec_hits": runner.spec_hits, "spec_partial_hits": runner.spec_partial_hits,
+                "spec_misses": runner.spec_misses,
+                "spec_dispatches_skipped": runner.spec_dispatches_skipped,
+                "frames_recovered": runner.rollback_frames_recovered_total,
+                "spec_host_dispatch_ms": {"mean": float(host.mean()),
+                                          "p99": float(np.percentile(host, 99))},
+                "rollouts": peer["counts"]["spec_rollouts_total"],
+            })
+        out.append(entry)
+    return out
+
+
+def check_spec_launches(label: str, run: P2PRun, spec_frames: int) -> None:
+    """On each peer the checksum kernel ran once per save into the
+    session's ring, once per restore guard and ``spec_frames`` times per
+    rollout (every branch of a frame in one launch)."""
+    for i, peer in enumerate(run.peers):
+        c = peer["counts"]
+        want = (c["saves_total"] + c["restore_guards_total"]
+                + spec_frames * c["spec_rollouts_total"])
+        got = peer["launches"].get("world_checksum", 0)
+        check(got == want, f"{label} peer {i}: {got} checksum launches, {c['saves_total']} "
+                           f"saves + {c['restore_guards_total']} guards + {spec_frames} x "
+                           f"{c['spec_rollouts_total']} rollouts")
+
+
+def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHES,
+               device: str = "cuda") -> dict:
+    """Phase 11's P2P runs: box_game, 2 peers speculating with
+    ``branches`` branches, against the same run with speculation off and
+    (on the card) the same run on the CPU."""
+    on_card = device == "cuda"
+    card = smi() if on_card else "cpu"
+
+    def box(spec):
+        return lambda dev, inputs: box_app(dev, inputs, players=2, speculation=spec)
+
+    def play(spec, dev, n):
+        if on_card and dev == "cuda":
+            reset_counts(kernels)
+        run = P2PRun(box(spec), dev, 2, seed=5, frames=n, inputs=held_key_runs)
+        run.run(kernels, ts, tck, max_seconds=300.0)
+        return run, run.summary(f"spec box_game 2 peers B={spec} on {dev}")
+
+    results = {}
+    on_run, on = play(branches, device, frames)
+    off_run, off = play(0, device, frames)
+    spec_frames = on_run.peers[0]["app"].stage.runner.spec_frames
+    for i, peer in enumerate(on_run.peers):
+        runner = peer["app"].stage.runner
+        check(runner.speculation_enabled, f"spec peer {i}: speculation disabled")
+        check(runner.spec_hits + runner.spec_partial_hits > 0,
+              f"spec peer {i}: no speculative hit in {runner.rollbacks_total} rollbacks")
+    streams = {"on": [on_run.confirmed_stream(p) for p in on_run.peers],
+               "off": [off_run.confirmed_stream(p) for p in off_run.peers]}
+    others = [("off", off_run)]
+    if on_card:
+        cpu_run, _ = play(branches, "cpu", frames)
+        streams["cpu"] = [cpu_run.confirmed_stream(p) for p in cpu_run.peers]
+        others.append(("cpu", cpu_run))
+    for name, other in others:
+        need = min(30, min(frames, other.frames) // 20)  # exchanges: one every 8 frames
+        for i, (a, b) in enumerate(zip(streams["on"], streams[name])):
+            common = sorted(set(a) & set(b))
+            check(len(common) >= need, f"spec peer {i}: {len(common)} frames in common "
+                                       f"with the {name} run, fewer than {need}")
+            check(all(a[f] == b[f] for f in common),
+                  f"spec peer {i}: the confirmed stream differs from the {name} run's")
+            print(f"spec box_game peer {i}: speculating stream on {device} {len(a)} frames, "
+                  f"{name} run {len(b)} frames, {len(common)} in common, bitwise equal")
+    if on_card:
+        check_spec_launches("spec box_game", on_run, spec_frames)
+        check_p2p_launches("spec off box_game", off)
+    # Read every number before the profiled render frame, which steps the
+    # runs once more and would add its launches, counts and tick.
+    results["on"] = {"peers": spec_peer_numbers(on_run, True),
+                     "launches": [dict(p["launches"]) for p in on_run.peers],
+                     "counts": [dict(p["counts"]) for p in on_run.peers],
+                     "confirmed_checksums": on["confirmed_checksums"], "seconds": on["seconds"]}
+    results["off"] = {"peers": spec_peer_numbers(off_run, False),
+                      "confirmed_checksums": off["confirmed_checksums"],
+                      "seconds": off["seconds"]}
+    for key, run in (("on", on_run), ("off", off_run)):
+        results[key]["busy"] = p2p_busy(run, kernels, ts, tck, iters=1) if on_card else None
+    for key in ("on", "off"):
+        for i, peer in enumerate(results[key]["peers"]):
+            print(f"spec box_game speculation {key} peer {i}: " + json.dumps(peer) + f"; {card}")
+        print(f"spec box_game speculation {key}: busy " + json.dumps(results[key]["busy"])
+              + f", {results[key]['confirmed_checksums']} confirmed frames, "
+              f"{results[key]['seconds']:.1f} s; {card}")
     return results
 
 
@@ -1638,6 +1988,22 @@ def main() -> int:
     mxu2["launches"] += sum(peer["launches"].get("pairwise_force_rows_mxu2", 0)
                             for peer in p2p["boids1024_mxu"]["peers"])
     print("p2p busy " + json.dumps(p2p["box2"]["busy"]))
+
+    phase("11 speculation on cuda")
+    check_batched_save(ts, tck)
+    ck["batched_save"] = batched_save_times(ts, tck)
+    attestation = check_attestation(ts)
+    spec = spec_phase(kernels, ts, tck)
+    ck["launches"] += sum(l.get("world_checksum", 0) for l in spec["on"]["launches"])
+    # Checksum launches a rollout of B branches x F frames made on each
+    # peer: the launches past the session ring's saves and guards, over the
+    # rollouts dispatched (F with the batched save, B x F without it).
+    ck["launches_per_rollout"] = [
+        (l.get("world_checksum", 0) - c["saves_total"] - c["restore_guards_total"])
+        / c["spec_rollouts_total"]
+        for l, c in zip(spec["on"]["launches"], spec["on"]["counts"])]
+    print("spec " + json.dumps({"attestation": attestation,
+                                "counts": spec["on"]["counts"]}))
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ also cover the cluster launch shape, and the plain versions of the save
 and guard modes that a CPU world takes.
 """
 
+import ctypes
 import pathlib
 import re
 
@@ -336,8 +337,13 @@ def test_c_source_agrees_with_the_wrapper():
     assert re.search(r"constexpr int kMaxThreads = (\d+);", src).group(1) == str(tck.MAX_THREADS)
     assert re.search(r"constexpr int kUnroll = (\d+);", src).group(1) == str(tck.UNROLL)
     assert f"h->n_parts <= {tck.MAX_PARTS}" in src
-    # Field counts of the structs the C entry reads.
-    assert len(tck._Part._fields_) == 11 and len(tck._Header._fields_) == 16
+    # Field counts of the structs the C entry reads; the header ends in the
+    # save's four batch steps (8-byte aligned after the two u32 constants).
+    assert len(tck._Part._fields_) == 11 and len(tck._Header._fields_) == 20
+    assert [f for f, _ in tck._Header._fields_[-4:]] == [
+        "dst_rows", "lanes_ring_stride", "frame_stride", "lanes_out_stride"]
+    assert all(f"long long {f};" in src for f, _ in tck._Header._fields_[-4:])
+    assert ctypes.sizeof(tck._Header) == 7 * 8 + 9 * 4 + 4 + 4 * 8
 
 
 # ---------------------------------------------------------------------------

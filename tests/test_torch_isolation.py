@@ -21,6 +21,7 @@ from bevy_ggrs_tpu_torch.ops import checksum as tck
 from bevy_ggrs_tpu_torch.ops import pairwise as tpw
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
 from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
+from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
 from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -82,6 +83,10 @@ ENTRY_POINTS = {
         .register_rollback_component("translation", shape=(3,))
         .build()),
     "GGRSPlugin.build (P2P stage)": lambda: p2p_app(),
+    "GGRSPlugin.build (speculation)": lambda: p2p_app(speculation=4),
+    "SpeculativeRollbackRunner": lambda: SpeculativeRollbackRunner(
+        tbox.make_schedule(), tbox.make_world(2, device="cpu").commit(),
+        max_prediction=4, num_players=2, input_spec=tbox.INPUT_SPEC, num_branches=4),
 }
 
 
@@ -93,11 +98,12 @@ def p2p_session():
     return builder.start_p2p_session(LoopbackNetwork().socket(("peer", 0)))
 
 
-def p2p_app():
+def p2p_app(speculation=0):
     app = RollbackApp().insert_session(p2p_session(), SessionType.P2P)
     return (GGRSPlugin(tbox.INPUT_SPEC)
             .with_input_system(lambda handle, app: np.uint8(0))
             .register_rollback_component("translation", shape=(3,))
+            .with_speculation(speculation)
             .build(app))
 
 

@@ -493,8 +493,7 @@ def test_app_stage_runs_p2p_and_spectator_sessions():
 
 def test_unported_options_raise():
     plugin = box_plugin()
-    with pytest.raises(NotImplementedError):
-        plugin.with_speculation(4)
+    assert plugin.with_speculation(4) is plugin  # ported: builds a speculating stage
     with pytest.raises(NotImplementedError):
         plugin.with_mesh(None)
     with pytest.raises(NotImplementedError, match="item 5"):

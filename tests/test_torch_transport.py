@@ -158,5 +158,5 @@ def test_udp_socket_sends_and_receives_on_localhost():
 
 
 def test_udp_socket_refuses_the_native_poller():
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         ttransport.UdpSocket(0, host="127.0.0.1", use_native=True)

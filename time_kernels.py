@@ -33,7 +33,12 @@ world and the boids-32,768 grid world, each with its milliseconds a call
 copies: an older tree's calls copy from the host, which keeps them out of
 a CUDA graph), its kernels and host-to-device copies a call, and the
 SHA-256 of the lanes, or of the saved ring row with its frame and digest,
-and whether the lanes equal the plain ``state.checksum``.
+and whether the lanes equal the plain ``state.checksum``. And the
+checksum's save over a branch axis (the speculative rollout's, one launch
+for every branch), where the tree has it: ``state.ring_save`` of box_game
+worlds at B = 64 and B = 256 into ``[B, 8]`` stacks of rings, with its
+device milliseconds by graph replay, its kernels and host-to-device copies
+a call, its milliseconds a call and the SHA-256 of the saved rows.
 
 Only public signatures are used, so any tree of the port since they were
 written runs. The last lines are the mean of each tree's turns, whether
@@ -122,6 +127,35 @@ def checksum_calls(cs, boids, n: int) -> dict:
     return out
 
 
+def batched_save_calls(cs) -> dict:
+    """The save of B box_game worlds into a ``[B, 8]`` stack of rings, at
+    B = 64 and 256 (BASELINE configs 2 and "HL"); empty for a tree without
+    branch rings."""
+    import torch
+
+    from bevy_ggrs_tpu_torch import state as ts
+    from bevy_ggrs_tpu_torch.models import box_game
+
+    if not hasattr(ts, "branch_rings"):
+        return {}
+    out = {}
+    for B in (64, 256):
+        world = box_game.make_world(2, device="cuda").commit()
+        state = ts.broadcast_branches(world, B)
+        step = torch.arange(B, device="cuda", dtype=torch.float32)[:, None, None] * 0.01
+        state.components["translation"].add_(step)  # every branch its own bits
+        rings = ts.branch_rings(world, B, 8)
+        ts.ring_save(rings, state, 3)
+        st = rings.states
+        leaves = ts.tree_leaves([st.alive, st.rollback_id, st.components, st.present,
+                                 st.resources])
+        digest = sha256(*(t[:, 3] for t in leaves), rings.frames[:, 3], rings.checksums[:, 3])
+        fn = lambda: ts.ring_save(rings, state, 3)  # noqa: E731
+        out[f"batched_save_box_game_B{B}"] = {**profiled(fn), "device_ms": cs.graph_ms(fn),
+                                              "call_ms": cs.cuda_ms(fn), "sha256": digest}
+    return out
+
+
 def measure(tree: pathlib.Path) -> dict:
     """Import the port from ``tree`` and time its four force kernels and
     its checksum."""
@@ -178,6 +212,7 @@ def measure(tree: pathlib.Path) -> dict:
     }
     for n in (1024, 32768):
         out.update(checksum_calls(cs, boids, n))
+    out.update(batched_save_calls(cs))
     return out
 
 
@@ -217,7 +252,7 @@ def main() -> int:
                                        for k, d in kernels.items()}
                                 for tree, kernels in means.items()}))
     print("same bits in every turn " + json.dumps({
-        kernel: len({row[kernel]["sha256"] for row in rows}) == 1
+        kernel: len({row[kernel]["sha256"] for row in rows if kernel in row}) == 1
         for kernel in rows[0] if kernel != "tree"}))
     import chip_smoke as cs
     print(cs.smi())
