@@ -40,6 +40,12 @@
 // d2 is never contracted into an FMA: the membership masks then see the
 // same float d2 as the plain version and JAX, and borderline pairs
 // classify alike.
+//
+// Tables stacked over B speculative branches are [feature][B][C][K] and
+// [feature][B][C][M] (ops/cell_gather.py stacks the features in front):
+// a branch is C more cells. The launch is a grid of (C, B), blockIdx.y the
+// branch, and each cell's block runs as in an unbatched launch, so every
+// branch's outputs are bitwise its unbatched launch's.
 
 #include <cuda_runtime.h>
 
@@ -133,12 +139,12 @@ __device__ int compact(int n, Keep keep, short* idx, int* s_warp) {
   return total;
 }
 
-// rows: f32 [kRowFeats, C, K]; cols: f32 [kColFeats, C, M];
-// out: f32 [kOut, C, K].
+// rows: f32 [kRowFeats, B, C, K]; cols: f32 [kColFeats, B, C, M];
+// out: f32 [kOut, B, C, K].
 template <class P>
 __global__ void __launch_bounds__(kThreads, 2) cell_slot_forces_kernel(
     const float* __restrict__ rows, const float* __restrict__ cols,
-    float* __restrict__ out, int C, int K, int M, P pair) {
+    float* __restrict__ out, int B, int C, int K, int M, P pair) {
   // A staged candidate's features, padded to whole float4s so that a
   // thread reads them in kColVec vector loads; the row partials reuse the
   // same shared memory once the last tile is walked.
@@ -151,10 +157,10 @@ __global__ void __launch_bounds__(kThreads, 2) cell_slot_forces_kernel(
   __shared__ int s_warp[kThreads / 32];
   auto* s_col = reinterpret_cast<float4*>(s_buf);         // [kTile][kColVec]
   auto* s_part = reinterpret_cast<float(*)[kThreads]>(s_buf);  // [kTerms][kThreads]
-  const long cell = blockIdx.x;
+  const long cell = (long)blockIdx.y * C + blockIdx.x;  // over all branches
   const float* row_base = rows + cell * K;
   const float* col_base = cols + cell * M;
-  const long row_stride = (long)C * K, col_stride = (long)C * M;
+  const long row_stride = (long)B * C * K, col_stride = (long)B * C * M;
 
   for (int r0 = 0; r0 < K; r0 += kThreads) {
     const int n_rows = min(kThreads, K - r0);
@@ -243,12 +249,17 @@ __global__ void __launch_bounds__(kThreads, 2) cell_slot_forces_kernel(
 
 }  // namespace
 
+// B: branches (1 for one world).
 extern "C" int ggrs_cell_slot_forces_flock(const void* rows, const void* cols,
-                                           void* out, int C, int K, int M,
-                                           float nr2, float sr2, float ws,
-                                           float wa, float wc, void* stream) {
+                                           void* out, int B, int C, int K,
+                                           int M, float nr2, float sr2,
+                                           float ws, float wa, float wc,
+                                           void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   const FlockPair pair{nr2, sr2, ws, wa, wc};
-  cell_slot_forces_kernel<FlockPair><<<C, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)cols, (float*)out, C, K, M, pair);
+  cell_slot_forces_kernel<FlockPair>
+      <<<dim3(C, B), kThreads, 0, (cudaStream_t)stream>>>(
+          (const float*)rows, (const float*)cols, (float*)out, B, C, K, M,
+          pair);
   return (int)cudaGetLastError();
 }

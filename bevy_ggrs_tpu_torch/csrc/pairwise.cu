@@ -55,6 +55,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32) pairwise_force_rows_kernel(
   __shared__ float2 s_vel[kTile];
   __shared__ float s_act[kTile];
 
+  const long b = blockIdx.y;  // the branch
+  row_pos += b * R;
+  row_vel += b * R;
+  row_active += b * R;
+  all_pos += b * N;
+  all_vel += b * N;
+  all_active += b * N;
+  out += b * R;
   const int lane = threadIdx.x % 32;
   const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const bool has_row = i < R;
@@ -113,16 +121,18 @@ __global__ void __launch_bounds__(kMaxWarps * 32) pairwise_force_rows_kernel(
 
 }  // namespace
 
-// warps: rows per block, from ops/pairwise.py::force_rows_launch_shape.
+// B: branches (1 for one world); warps: rows per block, from
+// ops/pairwise.py::force_rows_launch_shape.
 extern "C" int ggrs_pairwise_force_rows(
     const void* row_pos, const void* row_vel, const void* row_active,
     const void* all_pos, const void* all_vel, const void* all_active,
-    void* out, int R, int N, int warps, float nr2, float sr2, float ws,
-    float wa, float wc, void* stream) {
+    void* out, int B, int R, int N, int warps, float nr2, float sr2,
+    float ws, float wa, float wc, void* stream) {
   if (warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (R + warps - 1) / warps;
-  pairwise_force_rows_kernel<<<blocks, warps * 32, 0, (cudaStream_t)stream>>>(
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((R + warps - 1) / warps, B);
+  pairwise_force_rows_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
       (const float2*)row_pos, (const float2*)row_vel,
       (const float*)row_active, (const float2*)all_pos,
       (const float2*)all_vel, (const float*)all_active, (float2*)out, R, N,

@@ -47,6 +47,13 @@
 // SyncTest needs. d2 is __fadd_rn(__fmul_rn(dx,dx), __fmul_rn(dy,dy)),
 // never an FMA, so borderline pairs fall on the same side of each radius
 // as in the plain version and in JAX.
+//
+// A world stacked over B speculative branches is one launch of grid
+// (row_blocks x P, B) with clusters of (P, 1, 1): blockIdx.y is the
+// branch, whose operands and output start b R or b N boids in, and a
+// cluster never spans two branches. P comes from R and N alone, never
+// from B: it fixes the order in which the stages add, so every branch's
+// forces are bitwise its unbatched launch's.
 
 #include <cooperative_groups.h>
 
@@ -74,6 +81,14 @@ __global__ void __launch_bounds__(kThreads) pairwise_force_rows_mxu_kernel(
   auto* s_feat = s_wlo + kTile * kLd;
   auto* s_sep = s_feat + 16 * kLd;
 
+  const long b = blockIdx.y;  // the branch
+  row_pos += b * R;
+  row_vel += b * R;
+  row_active += b * R;
+  all_pos += b * N;
+  all_vel += b * N;
+  all_active += b * N;
+  out += b * R;
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int row0 = (blockIdx.x / P) * kTile;
@@ -145,17 +160,18 @@ __global__ void __launch_bounds__(kThreads) pairwise_force_rows_mxu_kernel(
 
 }  // namespace
 
-// P: blocks per cluster, from ops/pairwise.py::mxu2_launch_shape. A
-// cluster launch the card refuses returns its error; nothing falls back
-// to another P.
+// B: branches (1 for one world); P: blocks per cluster, from
+// ops/pairwise.py::mxu2_launch_shape. A cluster launch the card refuses
+// returns its error; nothing falls back to another P.
 extern "C" int ggrs_pairwise_force_rows_mxu(
     const void* row_pos, const void* row_vel, const void* row_active,
     const void* all_pos, const void* all_vel, const void* all_active,
-    void* out, int R, int N, int P, float nr2, float sr2, float ws, float wa,
-    float wc, void* stream) {
+    void* out, int B, int R, int N, int P, float nr2, float sr2, float ws,
+    float wa, float wc, void* stream) {
   if (P != 1 && P != 2 && P != 4 && P != 8) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((R + kTile - 1) / kTile * P);
+  config.gridDim = dim3((R + kTile - 1) / kTile * P, B);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = 0;
   config.stream = (cudaStream_t)stream;

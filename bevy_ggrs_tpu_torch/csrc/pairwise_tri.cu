@@ -50,6 +50,12 @@
 // bitwise the same. Every sum has one fixed order, so launches on the
 // same inputs are bitwise equal, as SyncTest needs. d2 is never
 // contracted into an FMA.
+//
+// A world stacked over B speculative branches runs both passes once, with
+// the branch as blockIdx.y: branch b's boids and output start b N in, and
+// its scratch b [2][tiles][16][64] floats in (the wrapper allocates [B,
+// *tri_scratch_shape(N)]). tile_of and every sum are as in an unbatched
+// launch, so every branch's forces are bitwise its unbatched launch's.
 
 #include "pair_mxu.cuh"
 
@@ -84,6 +90,12 @@ __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
     const float2* __restrict__ pos, const float2* __restrict__ vel,
     const float* __restrict__ active, float* __restrict__ part, int N, int nb,
     float nr2, float sr2) {
+  const long b = blockIdx.y;  // the branch
+  const long tiles = (long)nb * (nb + 1) / 2;
+  pos += b * N;
+  vel += b * N;
+  active += b * N;
+  part += b * 2 * tiles * kParts * kTile;
   int ri, cj;
   tile_of(blockIdx.x, nb, ri, cj);
   const bool off_diag = cj > ri;
@@ -147,7 +159,6 @@ __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
                             acc_w, kTile, wmma::mem_row_major);
   }
   __syncthreads();
-  const long tiles = (long)nb * (nb + 1) / 2;
   const long base = (long)blockIdx.x * kParts * kTile;
   for (int i = threadIdx.x; i < kParts * kTile / 4; i += blockDim.x) {
     const int q = i / (kTile / 4), t = 4 * (i % (kTile / 4));
@@ -187,6 +198,12 @@ __global__ void __launch_bounds__(kParts * kCombineBoids) tri_combine_kernel(
     float2* __restrict__ out, int N, int nb, float ws, float wa, float wc) {
   constexpr int kHalves = kTile / kCombineBoids;
   __shared__ float s_sum[kParts][kCombineBoids];
+  const long b = blockIdx.y;  // the branch
+  pos += b * N;
+  vel += b * N;
+  active += b * N;
+  part += b * 2 * ((long)nb * (nb + 1) / 2) * kParts * kTile;
+  out += b * N;
   const int k = blockIdx.x / kHalves, lane = threadIdx.x % 32;
   const int q = threadIdx.x / 32;
   const int t = (blockIdx.x % kHalves) * kCombineBoids + lane;
@@ -213,20 +230,22 @@ __global__ void __launch_bounds__(kParts * kCombineBoids) tri_combine_kernel(
 
 }  // namespace
 
-// part: the wrapper's scratch, ops/pairwise.py::tri_scratch_shape.
+// part: the wrapper's scratch, [B, *ops/pairwise.py::tri_scratch_shape];
+// B: branches (1 for one world).
 extern "C" int ggrs_pairwise_force_square_tri(
     const void* pos, const void* vel, const void* active, void* part,
-    void* out, int N, float nr2, float sr2, float ws, float wa, float wc,
-    void* stream) {
+    void* out, int B, int N, float nr2, float sr2, float ws, float wa,
+    float wc, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   const int nb = (N + kTile - 1) / kTile;
   const cudaStream_t s = (cudaStream_t)stream;
-  tri_tiles_kernel<<<nb * (nb + 1) / 2, kThreads, 0, s>>>(
+  tri_tiles_kernel<<<dim3(nb * (nb + 1) / 2, B), kThreads, 0, s>>>(
       (const float2*)pos, (const float2*)vel, (const float*)active,
       (float*)part, N, nb, nr2, sr2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tri_combine_kernel<<<nb * (kTile / kCombineBoids), kParts * kCombineBoids,
-                       0, s>>>((const float2*)pos, (const float2*)vel,
+  tri_combine_kernel<<<dim3(nb * (kTile / kCombineBoids), B),
+                       kParts * kCombineBoids, 0, s>>>((const float2*)pos, (const float2*)vel,
                                (const float*)active, (const float*)part,
                                (float2*)out, N, nb, ws, wa, wc);
   return (int)cudaGetLastError();

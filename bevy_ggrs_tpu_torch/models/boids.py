@@ -18,6 +18,14 @@ the CPU:
   kernel (:func:`~bevy_ggrs_tpu_torch.ops.cell_gather.cell_slot_forces`).
 
 The paths are allclose to each other, not bitwise: a session uses one.
+
+Every system also steps a world stacked over B speculative branches
+(``[B, N, ...]``), as the speculative rollout runs it: each branch reads
+its own ``bits[..., players]``, the force wrappers take the leading axis
+(one launch for all B on the card), and branch ``b``'s result is bitwise
+the step of its world alone. The path is chosen from the boid count ``N
+= shape[-2]``, never from B, so a rollout and a serial burst always take
+the same kernel.
 """
 
 from __future__ import annotations
@@ -141,27 +149,29 @@ def _kernel_forces(pos, vel, active):
 
 
 def _flock_step(state: WorldState, inputs: PlayerInputs, pairwise_fn) -> WorldState:
-    pos = state.components["position"]  # [N, 2]
+    """One step of ``[..., N]`` worlds: ``[N]`` or ``[B, N]``."""
+    pos = state.components["position"]  # [..., N, 2]
     vel = state.components["velocity"]
     leader = state.components["leader_handle"]
-    active = (state.alive & state.present["position"]).to(torch.float32)  # [N]
+    active = (state.alive & state.present["position"]).to(torch.float32)  # [..., N]
 
     force = pairwise_fn(pos, vel, active)
 
-    # Leader steering (player inputs), box_game-style exclusive keys.
+    # Leader steering (player inputs), box_game-style exclusive keys; each
+    # world reads its own bits[..., players].
     safe = leader.clamp(0, inputs.num_players - 1).long()
-    bits = inputs.bits[safe].to(torch.int32)
+    bits = torch.gather(inputs.bits, -1, safe).to(torch.int32)
     is_leader = (leader >= 0) & state.alive
     steer_x = (((bits & INPUT_RIGHT) != 0).to(torch.float32)
                - ((bits & INPUT_LEFT) != 0).to(torch.float32))
     steer_y = (((bits & INPUT_DOWN) != 0).to(torch.float32)
                - ((bits & INPUT_UP) != 0).to(torch.float32))
-    steer = torch.stack([steer_x, steer_y], dim=1) * float(LEADER_STEER)
-    force = force + torch.where(is_leader[:, None], steer, 0.0)
+    steer = torch.stack([steer_x, steer_y], dim=-1) * float(LEADER_STEER)
+    force = force + torch.where(is_leader[..., None], steer, 0.0)
 
     new_vel = vel + force
     # Speed clamp to [MIN_SPEED, MAX_SPEED].
-    speed = torch.sqrt((new_vel * new_vel).sum(dim=1, keepdim=True))
+    speed = torch.sqrt((new_vel * new_vel).sum(dim=-1, keepdim=True))
     speed_safe = torch.clamp(speed, min=1e-6)
     clamped = torch.clamp(speed_safe, float(MIN_SPEED), float(MAX_SPEED))
     new_vel = new_vel * (clamped / speed_safe)
@@ -173,7 +183,7 @@ def _flock_step(state: WorldState, inputs: PlayerInputs, pairwise_fn) -> WorldSt
     new_pos = torch.where(new_pos < -half, new_pos + 2 * half, new_pos)
 
     sel = (state.alive & state.present["position"] & state.present["velocity"])[
-        :, None
+        ..., None
     ]
     return state.replace(
         components={
@@ -205,11 +215,12 @@ def flock_system_mxu(state: WorldState, inputs: PlayerInputs) -> WorldState:
     """:func:`flock_system` with the neighbourhood sums on the tensor
     cores. The dispatch is static by world size, as in JAX: the triangle
     kernel for the square all-vs-all case at 4,096 boids and more, the
-    general kernel below, so every world size uses one float path."""
+    general kernel below, so every world size uses one float path. The
+    size is ``shape[-2]``: under a branch axis ``shape[0]`` is B."""
     params = _kernel_params()
 
     def forces(pos, vel, active):
-        if pos.shape[0] >= 4096:
+        if pos.shape[-2] >= 4096:
             return pw.pairwise_force_square_mxu_tri(pos, vel, active, **params)
         return pw.pairwise_force_rows_mxu2(pos, vel, pos, vel, active, active,
                                            **params)
@@ -277,8 +288,8 @@ def grid_config(num_boids: int) -> neighbor.GridConfig:
 def _grid_forces(pos, vel, active, impl):
     return neighbor.interact(
         pos, active, FLOCK_PAIR_KERNEL,
-        feats={"vx": vel[:, 0], "vy": vel[:, 1]},
-        mode="grid", config=grid_config(pos.shape[0]), impl=impl,
+        feats={"vx": vel[..., 0], "vy": vel[..., 1]},
+        mode="grid", config=grid_config(pos.shape[-2]), impl=impl,
     )
 
 
@@ -322,7 +333,7 @@ def make_schedule(kernel: str = "pallas", mode: Optional[str] = None) -> Schedul
     dense_system = _DENSE_SYSTEMS[kernel]
 
     def flock(state: WorldState, inputs: PlayerInputs) -> WorldState:
-        n = state.components["position"].shape[0]
+        n = state.components["position"].shape[-2]  # boids, whatever B
         grid = neighbor.resolve_mode(mode, n) == "grid"
         return (flock_system_grid_pallas if grid else dense_system)(state, inputs)
 

@@ -15,6 +15,14 @@ It sums each row's candidates in one order fixed by the inputs without
 atomics, so it is bitwise equal to itself from launch to launch; against
 its plain version and the JAX paths it is allclose (another summation
 order, and CUDA's ``rsqrtf``).
+
+Tables may carry a leading branch axis, ``[B, C, K]`` rows and ``[B, C,
+M]`` candidates (boids under speculation), with outputs ``[B, C, K]``.
+The kernel takes them stacked feature first, ``[5, B, C, K]`` and ``[5,
+B, C, M]`` (what ``torch.stack`` of the per-feature tables gives, so a
+branch is just C more cells), as one launch with the branch in
+``blockIdx.y``; each branch's outputs are bitwise its unbatched launch's.
+The plain version takes a branch at a time.
 """
 
 from __future__ import annotations
@@ -25,7 +33,6 @@ from typing import Dict, Tuple
 import torch
 
 from bevy_ggrs_tpu_torch.ops import _build
-from bevy_ggrs_tpu_torch.ops.pairwise import check_no_branch_axis
 
 # Pair elements ([cells, K, M]) per chunk of the plain version: at the
 # boids-32,768 grid a whole [C, K, M] intermediate is 184.5 M floats, and
@@ -48,7 +55,13 @@ def cell_slot_forces_plain(kernel, rowvals: Dict[str, torch.Tensor],
     """Plain PyTorch version of the cell kernel: ``out_dim`` tensors
     ``[C, K]`` from ``rowvals`` (``[C, K]`` per row name) and ``colvals``
     (``[C, M]`` per column name), the pair terms broadcast over
-    ``[cells, K, M]`` for a chunk of cells at a time."""
+    ``[cells, K, M]`` for a chunk of cells at a time. Tables with a leading
+    branch axis take a branch at a time, outputs ``[B, C, K]``."""
+    if rowvals["px"].dim() == 3:
+        per = [cell_slot_forces_plain(kernel, {n: v[b] for n, v in rowvals.items()},
+                                      {n: v[b] for n, v in colvals.items()})
+               for b in range(rowvals["px"].shape[0])]
+        return tuple(torch.stack(outs) for outs in zip(*per))
     c, k = rowvals["px"].shape
     m = colvals["px"].shape[1]
     step = max(1, _PLAIN_CHUNK_PAIRS // max(1, k * m))
@@ -68,28 +81,30 @@ def cell_slot_forces_plain(kernel, rowvals: Dict[str, torch.Tensor],
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
              + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
 def cell_slot_forces(kernel, rowvals: Dict[str, torch.Tensor],
                      colvals: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, ...]:
-    """Per-cell interaction outputs, ``out_dim`` tensors ``[C, K]``, for a
+    """Per-cell interaction outputs, ``out_dim`` tensors ``[C, K]`` (``[B,
+    C, K]`` for tables with a leading branch axis), for a
     :class:`~bevy_ggrs_tpu_torch.ops.neighbor.PairKernel`.
 
     A CPU tensor takes :func:`cell_slot_forces_plain`; a CUDA tensor
-    launches the pair kernel's instantiation of ``csrc/cell_gather.cu`` on
-    the current stream, and a pair kernel without one, or anything else the
-    kernel cannot take, raises. Tables with a leading branch axis raise
-    ``NotImplementedError`` on every device."""
-    check_no_branch_axis("row px", rowvals["px"], 2)
-    check_no_branch_axis("col px", colvals["px"], 2)
-    c, k = rowvals["px"].shape
-    m = colvals["px"].shape[1]
-    device = rowvals["px"].device
-    arrays = ([(f"row {n}", rowvals[n], (c, k)) for n in kernel.row_names]
-              + [(f"col {n}", colvals[n], (c, m)) for n in kernel.col_names])
+    launches the pair kernel's instantiation of ``csrc/cell_gather.cu``
+    once on the current stream, over every branch, and a pair kernel
+    without one, or anything else the kernel cannot take, raises."""
+    px = rowvals["px"]
+    if px.dim() not in (2, 3):
+        raise ValueError(f"row px must be [C, K] or [B, C, K], got {list(px.shape)}")
+    lead = tuple(px.shape[:-2])
+    c, k = px.shape[-2:]
+    m = colvals["px"].shape[-1]
+    device = px.device
+    arrays = ([(f"row {n}", rowvals[n], lead + (c, k)) for n in kernel.row_names]
+              + [(f"col {n}", colvals[n], lead + (c, m)) for n in kernel.col_names])
     for name, t, shape in arrays:
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be float32{list(shape)}, got "
@@ -108,15 +123,17 @@ def cell_slot_forces(kernel, rowvals: Dict[str, torch.Tensor],
     if (kernel.row_names, kernel.col_names) != (row_names, col_names):
         raise ValueError(f"pair kernel {kernel.name!r} does not read the "
                          f"features of its instantiation")
-    if min(c, k, m) == 0:
-        raise ValueError(f"empty grid C={c} K={k} M={m}")
-    rows = torch.stack([rowvals[n] for n in row_names])  # [5, C, K]
-    cols = torch.stack([colvals[n] for n in col_names])  # [5, C, M]
-    out = torch.empty((kernel.out_dim, c, k), dtype=torch.float32, device=device)
+    b = lead[0] if lead else 1
+    if min(b, c, k, m) == 0:
+        raise ValueError(f"empty grid B={b} C={c} K={k} M={m}")
+    rows = torch.stack([rowvals[n] for n in row_names])  # [5, (B,) C, K]
+    cols = torch.stack([colvals[n] for n in col_names])  # [5, (B,) C, M]
+    out = torch.empty((kernel.out_dim,) + lead + (c, k), dtype=torch.float32,
+                      device=device)
     fn = _build.function("cell_gather", symbol, _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.data_ptr(), cols.data_ptr(), out.data_ptr(), c, k, m,
+        err = fn(rows.data_ptr(), cols.data_ptr(), out.data_ptr(), b, c, k, m,
                  *kernel.params, stream)
     _build.check(err, "cell_slot_forces")
     cell_slot_forces.launches += 1

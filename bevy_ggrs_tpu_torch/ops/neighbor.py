@@ -28,6 +28,14 @@ The per-cell compute goes through the hand-written cell kernel
 ``impl="xla"``. The spill pass and the scatter back to entity order are
 plain PyTorch, as JAX computes them in XLA outside any kernel. Grid and
 dense forces are allclose, not bitwise: the sums run in another order.
+
+A world stacked over B speculative branches (``pos`` ``[B, N, 2]``, as
+boids under speculation steps it) bins, builds its tables, runs its spill
+pass and scatters a branch at a time, each exactly as one world does; the
+gathers into the tables are batched, and one launch of the cell kernel
+covers all B. Each branch's forces are bitwise its unbatched call's: the
+spill pass sums floats with ``torch.sum``, whose order could follow the
+shape if it ran over ``[B, S, N+1]`` at once.
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ from bevy_ggrs_tpu_torch.ops.cell_gather import (
     cell_slot_forces,
     cell_slot_forces_plain,
 )
-from bevy_ggrs_tpu_torch.ops.pairwise import check_no_branch_axis
 
 # Grid mode pays a sort and gathers per frame; below this entity count the
 # dense paths win outright (mode="auto" crossover).
@@ -165,7 +172,7 @@ def _neighbor_table_on(grid_dim: int, device: str) -> torch.Tensor:
 
 class NeighborGrid(NamedTuple):
     """Binning result. ``slots``/``spill`` hold entity indices with N as
-    the empty sentinel."""
+    the empty sentinel; a ``[B]`` world's fields carry a leading ``[B]``."""
 
     slots: torch.Tensor      # int32[C, K], N = empty
     spill: torch.Tensor      # int32[S], N = empty
@@ -175,9 +182,40 @@ class NeighborGrid(NamedTuple):
     n_dropped: torch.Tensor  # int32[] entities past K + S (lost)
 
 
+def _branches(pos: torch.Tensor) -> Optional[int]:
+    """None for one world's ``pos`` ``[N, 2]``, B for ``[B, N, 2]``."""
+    if pos.dim() not in (2, 3):
+        raise ValueError(f"pos must be [N, 2] or [B, N, 2], got {list(pos.shape)}")
+    return pos.shape[0] if pos.dim() == 3 else None
+
+
+def _stacked(parts):
+    """Per-branch results (tensors, tuples or dicts of them) stacked over a
+    leading branch axis."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(parts)
+    if isinstance(first, dict):
+        return {k: _stacked([p[k] for p in parts]) for k in first}
+    fields = [_stacked(list(f)) for f in zip(*parts)]
+    return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+
+
+def _each_branch(fn, branches: int, *args):
+    """``fn`` on each branch of ``args`` (tensors, or dicts of tensors, with
+    a leading branch axis), its results stacked."""
+    def branch(x, b):
+        return {k: v[b] for k, v in x.items()} if isinstance(x, dict) else x[b]
+
+    return _stacked([fn(*(branch(a, b) for a in args)) for b in range(branches)])
+
+
 def bin_entities(pos: torch.Tensor, active: torch.Tensor,
                  config: GridConfig) -> NeighborGrid:
-    """Stable sort-based binning (see the module docstring)."""
+    """Stable sort-based binning (see the module docstring); a ``[B]``
+    world bins a branch at a time."""
+    if _branches(pos) is not None:
+        return _each_branch(lambda p, a: bin_entities(p, a, config), pos.shape[0], pos, active)
     n = pos.shape[0]
     device = pos.device
     g, c = config.grid_dim, config.num_cells
@@ -281,7 +319,11 @@ def build_grid_tables(pos, active, config: GridConfig,
     binning result, the ``[C, padded_cols]`` candidate table (the nine
     neighbour cells' slots and the spill row, sentinel-padded) and the
     per-entity arrays with one extra row N of zeros, so that every
-    sentinel gather lands on an inactive entry."""
+    sentinel gather lands on an inactive entry. A ``[B]`` world builds a
+    branch at a time; each result gains a leading ``[B]``."""
+    if _branches(pos) is not None:
+        return _each_branch(lambda p, a, f: build_grid_tables(p, a, config, f),
+                            pos.shape[0], pos, active, feats or {})
     n = pos.shape[0]
     active_f = active.to(torch.float32)
     grid = bin_entities(pos, active, config)
@@ -299,15 +341,35 @@ def build_grid_tables(pos, active, config: GridConfig,
     return grid, cand, padded
 
 
+def _take(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values[idx]`` for one world's ``values`` ``[N+1]``; for ``[B,
+    N+1]``, each branch's values at its own ``idx[b]``."""
+    if values.dim() == 1:
+        return values[idx]
+    flat = idx.reshape(idx.shape[0], -1).long()
+    return torch.gather(values, 1, flat).reshape(idx.shape)
+
+
+def gather_tables(kernel: PairKernel, slots, cand, padded):
+    """The cell kernel's operands: ``(rowvals, colvals)``, each feature of
+    ``kernel`` gathered at the slots (``[C, K]``) and the candidates
+    (``[C, M]``); with a leading branch axis on ``slots``, ``cand`` and
+    ``padded``, one gather a feature for all B."""
+    rowvals = {name: _take(padded[name], slots) for name in kernel.row_names}
+    colvals = {name: _take(padded[name], cand) for name in kernel.col_names}
+    return rowvals, colvals
+
+
 def slot_forces(kernel: PairKernel, slots, cand, padded,
                 impl: str = "xla") -> torch.Tensor:
     """``[Cb, K, out_dim]`` interaction outputs for a block of cells.
     ``impl="pallas"`` names the JAX package's cell kernel, whose
     counterpart here is the CUDA cell kernel; ``impl="xla"`` runs its plain
     version on any device. Sentinel rows compute values that their
-    active 0 zeroes and the scatter drops."""
-    rowvals = {name: padded[name][slots] for name in kernel.row_names}
-    colvals = {name: padded[name][cand] for name in kernel.col_names}
+    active 0 zeroes and the scatter drops. Tables with a leading branch
+    axis (``slots`` ``[B, C, K]``, ``padded`` ``[B, N+1]``) give ``[B, Cb,
+    K, out_dim]`` from one launch of the cell kernel."""
+    rowvals, colvals = gather_tables(kernel, slots, cand, padded)
     if impl == "pallas":
         outs = cell_slot_forces(kernel, rowvals, colvals)
     elif impl == "xla":
@@ -331,7 +393,11 @@ def _pair_outputs(kernel: PairKernel, rowvals, col) -> torch.Tensor:
 
 def spill_forces(kernel: PairKernel, spill, padded) -> torch.Tensor:
     """``[S, out_dim]``: spilled entities against every entity, a dense
-    ``[S, N]`` pass, so an overflow costs time, never values."""
+    ``[S, N]`` pass, so an overflow costs time, never values. A leading
+    branch axis runs a branch at a time."""
+    if spill.dim() == 2:
+        return _each_branch(lambda s, pd: spill_forces(kernel, s, pd), spill.shape[0],
+                            spill, padded)
     rowvals = {name: padded[name][spill] for name in kernel.row_names}
     col = {name: padded[name][None, :] for name in kernel.col_names}
     return _pair_outputs(kernel, rowvals, col)
@@ -340,7 +406,11 @@ def spill_forces(kernel: PairKernel, spill, padded) -> torch.Tensor:
 def scatter_forces(n: int, slots, spill, slot_f, spill_f) -> torch.Tensor:
     """Per-slot and per-spill outputs back to entity order. Sentinel
     indices (N) land in a discarded extra row; untouched rows (inactive or
-    dropped entities) stay exactly 0."""
+    dropped entities) stay exactly 0. A leading branch axis scatters a
+    branch at a time."""
+    if spill.dim() == 2:
+        return _each_branch(lambda *t: scatter_forces(n, *t), spill.shape[0],
+                            slots, spill, slot_f, spill_f)
     out_dim = slot_f.shape[-1]
     out = slot_f.new_zeros((n + 1, out_dim))
     out[slots.reshape(-1).long()] = slot_f.reshape(-1, out_dim)
@@ -367,14 +437,21 @@ def interact(pos, active, kernel: PairKernel,
     :func:`resolve_mode`; grid mode needs a :class:`GridConfig` or
     ``world_half`` to derive one, and ``impl`` picks the per-cell compute
     (:func:`slot_forces`). Returns ``[N, out_dim]``; with
-    ``return_grid=True``, ``(forces, NeighborGrid or None)``. ``pos`` with
-    a leading branch axis raises ``NotImplementedError``."""
-    check_no_branch_axis("pos", pos, 2)
-    n = pos.shape[0]
+    ``return_grid=True``, ``(forces, NeighborGrid or None)``. A world
+    stacked over B branches (``pos`` ``[B, N, 2]``, ``active`` and
+    ``feats`` ``[B, N]``) gives ``[B, N, out_dim]``, each branch bitwise
+    its unbatched call: dense mode a branch at a time, grid mode as the
+    module docstring says."""
+    branches = _branches(pos)
+    n = pos.shape[-2]
     active_f = active.to(torch.float32)
     m = resolve_mode(mode, n)
     if m == "dense":
-        out = _interact_dense(pos, active_f, kernel, feats)
+        if branches is not None:
+            out = _each_branch(lambda p, a, f: _interact_dense(p, a, kernel, f), branches,
+                               pos, active_f, feats or {})
+        else:
+            out = _interact_dense(pos, active_f, kernel, feats)
         return (out, None) if return_grid else out
     if config is None:
         if world_half is None:

@@ -18,11 +18,28 @@ Each has a ``*_plain`` PyTorch version, taken for CPU tensors. Every
 kernel sums in one fixed order without float atomics, so it is bitwise
 equal to itself from launch to launch; against its plain version and the
 JAX paths it is allclose (another summation order, and CUDA's ``rsqrtf``).
+
+Every wrapper and plain version takes one world (``[R, 2]`` rows, ``[N,
+2]`` columns) or a world stacked over B speculative branches, a leading
+``[B]`` on every operand (JAX vmaps its kernels over that axis). Branch
+``b`` of a batched call is bitwise the unbatched call on branch ``b``'s
+operands:
+
+- a kernel takes the branch as ``blockIdx.y`` and runs each branch's
+  blocks exactly as an unbatched launch runs them. Its launch shape comes
+  from the per-world ``R`` and ``N`` only (:func:`force_rows_launch_shape`,
+  :func:`mxu2_launch_shape`), never from B: mxu2's cluster size fixes the
+  order in which its stages add, so a size chosen from B would give other
+  bits, and attestation would switch speculation off;
+- a plain version loops over the branches, one unbatched call each: a
+  batched product (``[B, 10, N] @ [B, N, N]``) can sum in another order
+  than B single ones on the CPU, where the tests attest.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -38,28 +55,36 @@ def _squared(radius: float) -> float:
     return float(r * r)
 
 
-BRANCH_AXIS_TODO = (
-    "the force kernels take one world, and a leading branch axis (boids under "
-    "speculation) is not ported yet (ROADMAP.md §2, 'Kernel work that the "
-    "modules need', item 1)")
+def _branch_axes(t: torch.Tensor, ndim: int) -> Tuple[int, ...]:
+    """``()`` when ``t`` has a world's ``ndim`` axes, ``(B,)`` when it has a
+    leading branch axis too; anything else raises."""
+    if t.dim() not in (ndim, ndim + 1):
+        raise ValueError(f"expected {ndim} axes, or a branch axis and {ndim}, "
+                         f"got shape {list(t.shape)}")
+    return tuple(t.shape[:t.dim() - ndim])
 
 
-def check_no_branch_axis(name: str, t: torch.Tensor, ndim: int) -> None:
-    """Raise ``NotImplementedError`` when ``t`` has more than ``ndim`` axes:
-    a world stacked over speculative branches, which the force kernels
-    and their plain versions do not take yet."""
-    if t.dim() > ndim:
-        raise NotImplementedError(f"{name} has shape {list(t.shape)}: {BRANCH_AXIS_TODO}")
+def per_branch(one_world):
+    """Extend a plain version over one world (its first operand ``[R, 2]``)
+    to a leading branch axis on every operand: one call a branch, stacked,
+    so each branch gets the bits of its unbatched call."""
+
+    @functools.wraps(one_world)
+    def plain(*args, **params):
+        if args[0].dim() == 2:
+            return one_world(*args, **params)
+        return torch.stack([one_world(*(a[b] for a in args), **params)
+                            for b in range(args[0].shape[0])])
+
+    return plain
 
 
 def _check_inputs(**expected) -> torch.device:
     """Check that every ``name=(tensor, shape)`` is float32 of that shape on
-    one device, and return the device. A tensor with a leading branch axis
-    raises ``NotImplementedError`` on every device. A CPU device passes as
-    it is; any other must be CUDA, with contiguous tensors and at least one
-    boid, or this raises: the wrappers launch their kernel there or fail."""
-    for name, (t, shape) in expected.items():
-        check_no_branch_axis(name, t, len(shape))
+    one device, and return the device. A CPU device passes as it is; any
+    other must be CUDA, with contiguous tensors, at least one branch and at
+    least one boid, or this raises: the wrappers launch their kernel there
+    or fail."""
     device = next(iter(expected.values()))[0].device
     for name, (t, shape) in expected.items():
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
@@ -74,11 +99,24 @@ def _check_inputs(**expected) -> torch.device:
     for name, (t, shape) in expected.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if shape[0] == 0:
+        if min(shape) == 0:
             raise ValueError(f"{name} holds no boids")
     return device
 
 
+def _rows_operands(row_pos, row_vel, all_pos, all_vel, row_active, all_active):
+    """Check the six operands of a rows-against-columns call; returns
+    ``(device, B, R, N)``, B = 1 for one world."""
+    lead = _branch_axes(row_pos, 2)
+    R, N = row_pos.shape[-2], all_pos.shape[-2]
+    device = _check_inputs(
+        row_pos=(row_pos, lead + (R, 2)), row_vel=(row_vel, lead + (R, 2)),
+        all_pos=(all_pos, lead + (N, 2)), all_vel=(all_vel, lead + (N, 2)),
+        row_active=(row_active, lead + (R,)), all_active=(all_active, lead + (N,)))
+    return device, (lead[0] if lead else 1), R, N
+
+
+@per_branch
 def pairwise_force_rows_plain(
     row_pos: torch.Tensor,  # f32[R, 2]
     row_vel: torch.Tensor,  # f32[R, 2]
@@ -94,8 +132,8 @@ def pairwise_force_rows_plain(
     w_cohesion: float,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, the same arithmetic per pair
-    over dense ``[R, N]`` tensors. Self-interaction drops out through the
-    d2 ≈ 0 mask."""
+    over dense ``[R, N]`` tensors (a branch at a time over a leading
+    ``[B]``). Self-interaction drops out through the d2 ≈ 0 mask."""
     dx = row_pos[:, 0:1] - all_pos[None, :, 0]  # [R, N]
     dy = row_pos[:, 1:2] - all_pos[None, :, 1]
     d2 = dx * dx + dy * dy
@@ -149,8 +187,8 @@ def force_rows_lane_columns(n: int, lane: int) -> range:
 
 
 # The C entries of csrc/pairwise.cu and csrc/pairwise_mxu.cu: seven
-# pointers, R, N, the launch shape's W or P, five floats and the stream.
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+# pointers, B, R, N, the launch shape's W or P, five floats and the stream.
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
              + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
@@ -168,33 +206,30 @@ def pairwise_force_rows(
     w_alignment: float,
     w_cohesion: float,
 ) -> torch.Tensor:
-    """``f32[R, 2]`` flocking force on each row boid from all boids.
+    """``f32[R, 2]`` flocking force on each row boid from all boids
+    (``[B, R, 2]`` over a leading branch axis).
 
     A CPU tensor takes :func:`pairwise_force_rows_plain`; a CUDA tensor
-    launches the kernel (``csrc/pairwise.cu``) on the current stream, in
-    blocks of :func:`force_rows_launch_shape`, and anything it cannot take
-    raises."""
+    launches the kernel (``csrc/pairwise.cu``) once on the current stream,
+    in blocks of :func:`force_rows_launch_shape` for every branch, and
+    anything it cannot take raises."""
     params = dict(neighbor_radius=neighbor_radius,
                   separation_radius=separation_radius,
                   w_separation=w_separation, w_alignment=w_alignment,
                   w_cohesion=w_cohesion)
-    R, N = row_pos.shape[0], all_pos.shape[0]
-    device = _check_inputs(
-        row_pos=(row_pos, (R, 2)), row_vel=(row_vel, (R, 2)),
-        all_pos=(all_pos, (N, 2)), all_vel=(all_vel, (N, 2)),
-        row_active=(row_active, (R,)), all_active=(all_active, (N,)))
+    args = (row_pos, row_vel, all_pos, all_vel, row_active, all_active)
+    device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
-        return pairwise_force_rows_plain(
-            row_pos, row_vel, all_pos, all_vel, row_active, all_active,
-            **params)
+        return pairwise_force_rows_plain(*args, **params)
     warps, _ = force_rows_launch_shape(R)
-    out = torch.empty((R, 2), dtype=torch.float32, device=device)
+    out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise", "ggrs_pairwise_force_rows", _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
                  all_pos.data_ptr(), all_vel.data_ptr(), all_active.data_ptr(),
-                 out.data_ptr(), R, N, warps, *_launch_params(**params), stream)
+                 out.data_ptr(), B, R, N, warps, *_launch_params(**params),
+                 stream)
     _build.check(err, "pairwise_force_rows")
     pairwise_force_rows.launches += 1
     return out
@@ -298,6 +333,7 @@ def _feats_of(pos, vel, active):
     return _lane_feats(pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], active)
 
 
+@per_branch
 def pairwise_force_rows_mxu2_plain(
     row_pos: torch.Tensor,  # f32[R, 2]
     row_vel: torch.Tensor,  # f32[R, 2]
@@ -308,12 +344,14 @@ def pairwise_force_rows_mxu2_plain(
     **params,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tensor-core kernel: the bf16 pair
-    matrices over dense ``[R, N]`` tensors, one f32 product each."""
+    matrices over dense ``[R, N]`` tensors, one f32 product each (a branch
+    at a time over a leading ``[B]``)."""
     feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
     return _mxu_forces(row_pos, row_vel, row_active, all_pos, feat_t, sep_t,
                        **params)
 
 
+@per_branch
 def pairwise_force_square_mxu_tri_plain(
     pos: torch.Tensor,  # f32[N, 2]
     vel: torch.Tensor,  # f32[N, 2]
@@ -322,7 +360,8 @@ def pairwise_force_square_mxu_tri_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the triangle kernel: the same function,
     every boid against every boid, over the full ``[N, N]`` pair matrices
-    (building each pair's masks once is the kernel's saving)."""
+    (building each pair's masks once is the kernel's saving); a branch at
+    a time over a leading ``[B]``."""
     feat_t, sep_t = _feats_of(pos, vel, active)
     return _mxu_forces(pos, vel, active, pos, feat_t, sep_t, **params)
 
@@ -371,32 +410,28 @@ def pairwise_force_rows_mxu2(
     **params,
 ) -> torch.Tensor:
     """``f32[R, 2]`` flocking force on each row boid from all boids, the
-    sums on the tensor cores. ``params`` are the five floats of
-    :func:`pairwise_force_rows`.
+    sums on the tensor cores (``[B, R, 2]`` over a leading branch axis).
+    ``params`` are the five floats of :func:`pairwise_force_rows`.
 
     A CPU tensor takes :func:`pairwise_force_rows_mxu2_plain`; a CUDA
     tensor launches ``csrc/pairwise_mxu.cu`` once on the current stream, as
-    clusters of :func:`mxu2_launch_shape`, and the kernel builds the
-    feature stacks itself. Anything it cannot take, and a cluster launch
-    the card refuses, raises."""
-    R, N = row_pos.shape[0], all_pos.shape[0]
-    device = _check_inputs(
-        row_pos=(row_pos, (R, 2)), row_vel=(row_vel, (R, 2)),
-        all_pos=(all_pos, (N, 2)), all_vel=(all_vel, (N, 2)),
-        row_active=(row_active, (R,)), all_active=(all_active, (N,)))
+    clusters of :func:`mxu2_launch_shape` for every branch, and the kernel
+    builds the feature stacks itself. Anything it cannot take, and a
+    cluster launch the card refuses, raises."""
+    args = (row_pos, row_vel, all_pos, all_vel, row_active, all_active)
+    device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
-        return pairwise_force_rows_mxu2_plain(
-            row_pos, row_vel, all_pos, all_vel, row_active, all_active,
-            **params)
+        return pairwise_force_rows_mxu2_plain(*args, **params)
     p, _ = mxu2_launch_shape(R, N)
-    out = torch.empty((R, 2), dtype=torch.float32, device=device)
+    out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
                          _ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(row_pos.data_ptr(), row_vel.data_ptr(), row_active.data_ptr(),
                  all_pos.data_ptr(), all_vel.data_ptr(), all_active.data_ptr(),
-                 out.data_ptr(), R, N, p, *_launch_params(**params), stream)
+                 out.data_ptr(), B, R, N, p, *_launch_params(**params),
+                 stream)
     _build.check(err, "pairwise_force_rows_mxu2")
     pairwise_force_rows_mxu2.launches += 1
     return out
@@ -406,14 +441,15 @@ pairwise_force_rows_mxu2.launches = 0
 
 _TRI_PARTS = 16  # accumulator rows kept per boid and tile side
 
-_TRI_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+_TRI_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
 def tri_scratch_shape(n: int) -> Tuple[int, int, int, int]:
     """Shape of the triangle kernel's partial-sum scratch: for each side
     (row side, then column side) one ``[16, 64]`` block per upper-triangle
-    tile, in the tile order of :func:`tri_tile_of`."""
+    tile, in the tile order of :func:`tri_tile_of`. A batched call
+    allocates one such scratch a branch, ``[B, *tri_scratch_shape(N)]``."""
     nb = -(-n // MXU_TILE)
     return 2, nb * (nb + 1) // 2, _TRI_PARTS, MXU_TILE
 
@@ -445,26 +481,29 @@ def pairwise_force_square_mxu_tri(
     **params,
 ) -> torch.Tensor:
     """``f32[N, 2]`` all-vs-all flocking force, each pair's masks built once
-    for both boids (square case only: every boid is a row and a column).
+    for both boids (square case only: every boid is a row and a column);
+    ``[B, N, 2]`` over a leading branch axis.
 
     A CPU tensor takes :func:`pairwise_force_square_mxu_tri_plain`; a CUDA
     tensor launches the two passes of ``csrc/pairwise_tri.cu`` on the
-    current stream, with their partial-sum scratch allocated here; the
-    kernel builds the feature tiles itself, so nothing but ``torch.empty``
-    runs here. Anything it cannot take raises."""
-    N = pos.shape[0]
-    device = _check_inputs(pos=(pos, (N, 2)), vel=(vel, (N, 2)),
-                           active=(active, (N,)))
+    current stream, each over every branch, with their partial-sum scratch
+    allocated here; the kernel builds the feature tiles itself, so nothing
+    but ``torch.empty`` runs here. Anything it cannot take raises."""
+    lead = _branch_axes(pos, 2)
+    N = pos.shape[-2]
+    device = _check_inputs(pos=(pos, lead + (N, 2)), vel=(vel, lead + (N, 2)),
+                           active=(active, lead + (N,)))
     if device.type == "cpu":
         return pairwise_force_square_mxu_tri_plain(pos, vel, active, **params)
-    part = torch.empty(tri_scratch_shape(N), dtype=torch.float32, device=device)
-    out = torch.empty((N, 2), dtype=torch.float32, device=device)
+    part = torch.empty(lead + tri_scratch_shape(N), dtype=torch.float32,
+                       device=device)
+    out = torch.empty(pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise_tri", "ggrs_pairwise_force_square_tri",
                          _TRI_ARGTYPES)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), vel.data_ptr(), active.data_ptr(),
-                 part.data_ptr(), out.data_ptr(), N,
+                 part.data_ptr(), out.data_ptr(), lead[0] if lead else 1, N,
                  *_launch_params(**params), stream)
     _build.check(err, "pairwise_force_square_mxu_tri")
     pairwise_force_square_mxu_tri.launches += 1

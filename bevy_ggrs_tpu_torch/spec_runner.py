@@ -25,11 +25,8 @@ system that does.
 The structured branch tree, the candidate ranking and the dedup
 signatures are NumPy code, bitwise the JAX package's pure-Python path (the
 one it takes under ``GGRS_NO_NATIVE=1``, itself bitwise equal to its
-native C++ path). The learned predictor (ROADMAP.md, port queue item 5), device
-meshes (item 8) raise ``NotImplementedError`` here. So does boids under
-speculation, at its first rollout: the force kernels' wrappers refuse a
-world with a leading branch axis (ROADMAP.md §2, "Kernel work that the
-modules need", item 1).
+native C++ path). The learned predictor (ROADMAP.md, port queue item 5) and
+device meshes (item 8) raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations

@@ -115,11 +115,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ticks (mean, p99), recovery ticks (ticks that rolled back: p50, p99),
    hits, partial hits, misses, skipped dispatches, ``spec_host_dispatch``
    ms, and the device's busy share of one profiled render frame.
+   Then boids under speculation ("11b"): the batched save of boids-1,024
+   worlds (B = 8, and B = 128 in the rollout's shape) bitwise against its
+   plain version, with the box_game cases above; each force kernel over a
+   leading branch axis, bitwise equal to B unbatched launches and within
+   its tolerance of its batched plain version (a branch at a time): the
+   f32 kernel at B = 16, N = 1,024 and B = 3, N = 1,000; the general
+   tensor-core kernel at B = 128, R = N = 1,024, B = 3, (R, N) = (65,
+   1,000) and B = 1; the triangle at B = 8, N = 4,096 and B = 2, N =
+   4,100; the cell kernel on the boids-32,768 grid at B = 2 and on a
+   clustered 600-boid grid that spills at B = 4; each timed at the first
+   shape (device and per call, beside B unbatched launches in one graph
+   and B times one world's bound). The warmup attestation of boids runners,
+   fresh, ``ok`` with ``real_checked`` 2B: mxu 1,024 at B = 128, pallas
+   1,024 at B = 16, mxu 4,096 (the triangle) at B = 8 and the mxu grid at
+   32,768 at B = 2, all at F = 8, with the path's force kernel launched F
+   times a rollout and F times a replayed branch, and no other. Then
+   boids-1,024 ``kernel="mxu"``, 2 peers, both ``with_speculation(128)``
+   (BASELINE.md config 4), 300 frames over the same loopback on held-key
+   runs, against the same run with speculation off: both RUNNING, no
+   ``DESYNC_DETECTED``, hits on each peer, the confirmed streams bitwise
+   equal; on each peer the general tensor-core kernel ran once per frame
+   advanced serially (advances less the frames a hit copied) plus F times
+   per rollout, no other force kernel ran, and the checksum kernel once
+   per serial save, guard and F times per rollout; the same numbers per
+   peer as box_game's. Every phase prints its wall seconds.
 
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5
-and 8 and each P2P run of phases 10 and 11 and read just after (the P2P
-runs read them around each peer's update); launches made to compare a
-kernel with its plain version are not counted. The last three lines are
+and 8, each P2P run of phases 10 and 11 and each boids attestation of
+phase 11, and read just after (the P2P runs read them around each peer's
+update); launches made to compare a kernel with its plain version are not
+counted. The last three lines are
 the kernel table (JSON), the card's name and power limit, and the result
 (JSON).
 """
@@ -184,8 +210,18 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "t0": None}
+
+
+def phase(name) -> None:
+    """Print the wall seconds the previous phase took, then open the next
+    (``None`` closes the last)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"phase {_PHASE['name'].split()[0]} wall {now - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def smi() -> str:
@@ -606,8 +642,8 @@ def grid_operands(tnb, boids, pos, vel, active, config):
 def live_pairs(rowvals, colvals) -> int:
     """The pairs the cell kernel computes: live rows times live candidates,
     summed over the cells."""
-    rows = (rowvals["active"] != 0).sum(1)
-    cols = (colvals["active"] != 0).sum(1)
+    rows = (rowvals["active"] != 0).sum(-1)  # [C] or, over branches, [B, C]
+    cols = (colvals["active"] != 0).sum(-1)
     return int((rows * cols).sum())
 
 
@@ -807,9 +843,12 @@ def box_app(device, inputs=None, players: int = 2, speculation: int = 0):
     )
 
 
-def boids_app(n: int, device, schedule=None, inputs=None):
+def boids_app(n: int, device, schedule=None, inputs=None, speculation: int = 0):
+    """A boids app of ``n`` boids; ``speculation`` branches (0: none), with
+    a metrics sink on the runner."""
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import boids
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
 
     def steer(handle, app):
         return np.uint8((app.session.current_frame // 5 + 7 * handle) % 16)
@@ -827,6 +866,8 @@ def boids_app(n: int, device, schedule=None, inputs=None):
         .with_world_capacity(n)
         .with_setup_system(lambda world, app: boids.spawn_flock(world, n, 2))
         .with_device(device)
+        .with_speculation(speculation)
+        .with_metrics(Metrics() if speculation else None)
         .build()
     )
 
@@ -1031,7 +1072,7 @@ def held_key_runs(seed: int, frames: int, players: int):
 
 # Runner counters an update's deltas are kept of.
 RUNNER_COUNTS = ("saves_total", "restore_guards_total", "spec_rollouts_total",
-                 "rollbacks_total")
+                 "rollbacks_total", "rollback_frames_recovered_total")
 
 
 class P2PRun:
@@ -1405,13 +1446,23 @@ def box_branch_worlds(ts, n: int, device, seed: int = 0):
     return out
 
 
-def check_batched_save(ts, tck) -> None:
+def boids_branch_worlds(boids, n: int, branches: int, seed: int):
+    """``branches`` boids-``n`` worlds on the card, each with the positions
+    and velocities of :func:`branch_flocks`."""
+    world = boids.make_world(n, 2, device="cuda").commit()
+    pos, vel, _ = branch_flocks(branches, world.components["position"], seed)
+    return [world.replace(components={**world.components, "position": pos[b].clone(),
+                                      "velocity": vel[b].clone()}) for b in range(branches)]
+
+
+def check_batched_save(ts, tck, boids) -> None:
     """The save mode over a branch axis against its plain version, bitwise:
     the rings' bytes, frames and digests and the lanes, over saves that
-    wrap the rings; B = 1 also against the single-world save. The last
-    case has the spec rollout's own shape: B = 64 rings of depth F = 8,
-    each save's lanes written through the strided view ``lanes[:, t]`` of
-    an ``int64[B, F, 2]`` tensor, as ``SpecResult.checksums`` is filled."""
+    wrap the rings; B = 1 also against the single-world save. The
+    rollout-shaped cases have the spec rollout's own shape: B rings of
+    depth F = 8 (box_game at B = 64, boids-1,024 at B = 128), each save's
+    lanes written through the strided view ``lanes[:, t]`` of an
+    ``int64[B, F, 2]`` tensor, as ``SpecResult.checksums`` is filled."""
     reg = random_registry(ts)
     F = P2P_MAX_PREDICTION
     cases = [("box_game", B, box_branch_worlds(ts, B, "cuda", seed=B), 3, False)
@@ -1421,6 +1472,11 @@ def check_batched_save(ts, tck) -> None:
                    for s in range(64)], 3, False))
     cases.append(("box_game rollout-shaped", SPEC_BRANCHES,
                   box_branch_worlds(ts, SPEC_BRANCHES, "cuda", seed=99), F, True))
+    cases.append(("boids-1024", 8, boids_branch_worlds(boids, BOIDS_SPEC_N, 8, seed=8), 3,
+                  False))
+    cases.append(("boids-1024 rollout-shaped", BOIDS_SPEC_BRANCHES,
+                  boids_branch_worlds(boids, BOIDS_SPEC_N, BOIDS_SPEC_BRANCHES, seed=128), F,
+                  True))
     for label, B, worlds, depth, strided in cases:
         state = branch_worlds(ts, worlds)
         rings = ts.branch_rings(worlds[0], B, depth)
@@ -1503,17 +1559,22 @@ def batched_save_times(ts, tck) -> dict:
 
 
 def check_attestation(ts, device: str = "cuda", branches: int = SPEC_BRANCHES,
-                      spec_frames: int = P2P_MAX_PREDICTION) -> dict:
-    """A box_game runner's warmup attestation at ``branches`` x
-    ``spec_frames``: it passes, and leaves the live ring bitwise as it
-    was."""
+                      spec_frames: int = P2P_MAX_PREDICTION, model=None,
+                      label: str = "box_game") -> dict:
+    """A runner's warmup attestation at ``branches`` x ``spec_frames``: it
+    passes with every branch of both tensors replayed (``real_checked``
+    2B), and leaves the live ring bitwise as it was. ``model`` is
+    ``(schedule, committed world, input spec)``, box_game's by default."""
     from bevy_ggrs_tpu_torch.models import box_game
     from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
 
-    runner = SpeculativeRollbackRunner(
+    schedule, world, input_spec = model or (
         box_game.make_schedule(), box_game.make_world(2, device=device).commit(),
-        max_prediction=P2P_MAX_PREDICTION, num_players=2, input_spec=box_game.INPUT_SPEC,
-        num_branches=branches, spec_frames=spec_frames, device=device)
+        box_game.INPUT_SPEC)
+    runner = SpeculativeRollbackRunner(
+        schedule, world, max_prediction=P2P_MAX_PREDICTION, num_players=2,
+        input_spec=input_spec, num_branches=branches, spec_frames=spec_frames,
+        device=device)
     before = clone_ring(ts, runner.ring)
     state = [t.clone() for t in world_leaves(ts, runner.state)]
     t0 = time.perf_counter()
@@ -1521,19 +1582,19 @@ def check_attestation(ts, device: str = "cuda", branches: int = SPEC_BRANCHES,
     seconds = time.perf_counter() - t0
     report = runner.attestation
     check(report is not None and report.ok and runner.speculation_enabled,
-          f"attestation failed: {report}")
-    check(report.scanned_branches == branches and report.structured_checked,
-          f"attestation coverage: {report}")
+          f"attestation {label} failed: {report}")
+    check(report.scanned_branches == branches and report.structured_checked
+          and report.real_checked == 2 * branches, f"attestation {label} coverage: {report}")
     check(torch.equal(before.frames, runner.ring.frames)
           and torch.equal(before.checksums, runner.ring.checksums)
           and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, before.states),
                                                    world_leaves(ts, runner.ring.states)))
           and all(same_bytes(a, b) for a, b in zip(state, world_leaves(ts, runner.state)))
-          and runner.frame == 0, "the attestation changed the live ring or state")
+          and runner.frame == 0, f"the attestation of {label} changed the live ring or state")
     out = {"ok": report.ok, "real_checked": report.real_checked,
            "scanned_branches": report.scanned_branches, "frames": report.frames,
-           "warmup_seconds": seconds}
-    print(f"attestation box_game B={branches} F={spec_frames} on {device}: "
+           "warmup_seconds": seconds, "rollouts": runner.spec_rollouts_total}
+    print(f"attestation {label} B={branches} F={spec_frames} on {device}: "
           + json.dumps(out) + "; the live ring and state bitwise unchanged")
     return out
 
@@ -1644,6 +1705,314 @@ def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHE
         print(f"spec box_game speculation {key}: busy " + json.dumps(results[key]["busy"])
               + f", {results[key]['confirmed_checksums']} confirmed frames, "
               f"{results[key]['seconds']:.1f} s; {card}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: boids under speculation
+# ---------------------------------------------------------------------------
+
+# BASELINE.md config 4: 1,024 boids x 128 branches x 8 frames, kernel="mxu".
+BOIDS_SPEC_BRANCHES = 128
+BOIDS_SPEC_N = 1024
+# The warmup attestations: (label, kernel, mode, boids, branches, the
+# force kernel the path launches); F = 8.
+BOIDS_ATTESTATIONS = (
+    ("mxu-1024", "mxu", "dense", 1024, 128, "pairwise_force_rows_mxu2"),
+    ("pallas-1024", "pallas", "dense", 1024, 16, "pairwise_force_rows"),
+    ("mxu-4096-tri", "mxu", "dense", 4096, 8, "pairwise_force_square_mxu_tri"),
+    ("mxu-grid-32768", "mxu", "grid", 32768, 2, "cell_slot_forces"),
+)
+
+
+def branch_flocks(branches: int, base_pos, seed: int):
+    """``branches`` flocks on the card, ``[B, n, ...]``, from the positions
+    ``base_pos [n, 2]``: each branch's positions jittered by up to 0.02 and
+    its velocities its own (up to 0.05), every 7th boid inactive."""
+    n = base_pos.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    jitter = (torch.rand((branches, n, 2), generator=g, device="cuda") - 0.5) * 0.04
+    vel = (torch.rand((branches, n, 2), generator=g, device="cuda") - 0.5) * 0.1
+    active = torch.ones((branches, n), device="cuda")
+    active[:, ::7] = 0.0
+    return (base_pos[None] + jitter).contiguous(), vel, active
+
+
+def batched_grid_operands(tnb, boids, pos, vel, active, config):
+    """The cell kernel's ``[B, C, ...]`` operands for a ``[B]`` world, as
+    ``slot_forces`` gathers them, and the binning."""
+    grid, cand, padded = tnb.build_grid_tables(
+        pos, active, config, {"vx": vel[..., 0], "vy": vel[..., 1]})
+    rowvals, colvals = tnb.gather_tables(boids.FLOCK_PAIR_KERNEL, grid.slots, cand, padded)
+    return grid, rowvals, colvals
+
+
+def branch_case(label: str, batched, singles, plain, atol_of, bound: dict) -> dict:
+    """A force kernel over a ``[B]`` world: bitwise the B unbatched launches
+    ``singles``, and within ``atol_of(largest force)`` of the batched plain
+    version; returns the call's pieces for the times."""
+    got = batched()
+    one = torch.stack([f() for f in singles])
+    again = batched()
+    torch.cuda.synchronize()
+    check(torch.equal(got, one), f"{label}: the batched launch differs from "
+                                 f"{len(singles)} unbatched launches")
+    check(torch.equal(got, again), f"{label}: launch to launch")
+    want = plain()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    check(scale > 1e-3, f"{label}: forces all near zero")
+    check(err <= atol_of(scale), f"{label}: error {err} over {atol_of(scale)}")
+    print(f"{label}: bitwise equal to {len(singles)} unbatched launches; max_abs_err="
+          f"{err:.3e} against the batched plain version (limit {atol_of(scale):.3e}, "
+          f"largest force {scale:.4f})")
+    return {"label": label, "batched": batched, "singles": singles, "plain": plain,
+            "err": err, "bound": bound}
+
+
+def check_batched_forces(tpw, tcg, tnb, boids, params) -> dict:
+    """Each force kernel over a leading branch axis on the card, at the
+    speculative paths' shapes and at ragged ones: bitwise equal to B
+    unbatched launches, within its tolerance of its batched plain version.
+    Returns, per kernel, its worst error and the case at the phase-11
+    shape (timed later)."""
+    spiral = {n: boids.make_world(n, 2, device="cuda").commit().components["position"]
+              for n in (1000, 1024, 4096, 4100)}
+    out = {"pairwise_force_rows": {"err": 0.0}, "pairwise_force_rows_mxu2": {"err": 0.0},
+           "pairwise_force_square_mxu_tri": {"err": 0.0}, "cell_slot_forces": {"err": 0.0}}
+
+    def keep(name, case, timed):
+        out[name]["err"] = max(out[name]["err"], case["err"])
+        if timed:
+            out[name]["case"] = case
+
+    def rows_case(fn, plain, B, n, rows, seed):
+        pos, vel, act = branch_flocks(B, spiral[n], seed)
+        args = (pos[:, rows].contiguous(), vel[:, rows].contiguous(), pos, vel,
+                act[:, rows].contiguous(), act)
+        return args, (lambda: fn(*args, **params)), [
+            (lambda b=b: fn(*(a[b] for a in args), **params)) for b in range(B)], (
+            lambda: plain(*args, **params))
+
+    for B, n, rows, timed in ((16, 1024, slice(0, 1024), True), (3, 1000, slice(0, 1000), False)):
+        args, batched, singles, plain = rows_case(
+            tpw.pairwise_force_rows, tpw.pairwise_force_rows_plain, B, n, rows, seed=B)
+        r = args[0].shape[1]
+        keep("pairwise_force_rows", branch_case(
+            f"f32 over branches B={B} R={r} N={n}", batched, singles, plain,
+            lambda scale: FORCE_ATOL,
+            {"nbytes": B * (r * 5 + n * 5 + r * 2) * 4, "ops": B * r * n * FORCE_OPS_PER_PAIR}),
+             timed)
+    for B, n, rows, timed in ((BOIDS_SPEC_BRANCHES, 1024, slice(0, 1024), True),
+                              (3, 1000, slice(0, 65), False), (1, 1024, slice(0, 1024), False)):
+        args, batched, singles, plain = rows_case(
+            tpw.pairwise_force_rows_mxu2, tpw.pairwise_force_rows_mxu2_plain, B, n, rows,
+            seed=100 + B)
+        r = args[0].shape[1]
+        p, row_blocks = tpw.mxu2_launch_shape(r, n)
+        keep("pairwise_force_rows_mxu2", branch_case(
+            f"mxu2 over branches B={B} R={r} N={n} (cluster {p} x {row_blocks} row blocks "
+            f"x {B} branches)", batched, singles, plain, lambda scale: MXU_RTOL * scale,
+            {"nbytes": B * (r * 5 + n * 5 + r * 2) * 4, "ops": B * r * n * MXU_MASK_OPS_PER_PAIR,
+             "tc_flops": B * r * n * MXU_TC_FLOPS_PER_PAIR}), timed)
+    def tri_case(B, n, seed):
+        args = branch_flocks(B, spiral[n], seed)
+        fn, plain = tpw.pairwise_force_square_mxu_tri, tpw.pairwise_force_square_mxu_tri_plain
+        return branch_case(
+            f"tri over branches B={B} N={n}", lambda: fn(*args, **params),
+            [(lambda b=b: fn(*(a[b] for a in args), **params)) for b in range(B)],
+            lambda: plain(*args, **params), lambda scale: MXU_RTOL * scale,
+            {"nbytes": B * n * 7 * 4, "ops": B * n * (n + 1) // 2 * MXU_MASK_OPS_PER_PAIR,
+             "tc_flops": B * n * n * MXU_TC_FLOPS_PER_PAIR})
+
+    for B, n, timed in ((8, 4096, True), (2, 4100, False)):
+        keep("pairwise_force_square_mxu_tri", tri_case(B, n, seed=200 + B), timed)
+    kernel = boids.FLOCK_PAIR_KERNEL
+    big = boids.make_world(32768, 2, device="cuda").commit().components["position"]
+    rng = np.random.RandomState(3)
+    clustered = torch.from_numpy(rng.uniform(-1.5, 1.5, (600, 2)).astype(np.float32)).cuda()
+    for label, B, base, n, timed in (("boids-32768", 2, big, 32768, True),
+                                     ("clustered-600", 4, clustered, 600, False)):
+        pos, vel, act = branch_flocks(B, base, seed=300 + B)
+        config = boids.grid_config(n)
+        grid, rowvals, colvals = batched_grid_operands(tnb, boids, pos, vel, act, config)
+        if label.startswith("clustered"):
+            check(bool((grid.n_spilled > 0).all()) and bool((grid.n_dropped == 0).all()),
+                  f"cell {label}: every branch must spill and none drop")
+        pairs = live_pairs(rowvals, colvals)
+        C, K, M = config.num_cells, config.cell_capacity, config.padded_cols
+        keep("cell_slot_forces", branch_case(
+            f"cell over branches {label} B={B} C={C} K={K} M={M} (spilled "
+            f"{grid.n_spilled.tolist()}, pairs computed {pairs})",
+            lambda rv=rowvals, cv=colvals: torch.stack(tcg.cell_slot_forces(kernel, rv, cv), -1),
+            [(lambda b=b, rv=rowvals, cv=colvals: torch.stack(tcg.cell_slot_forces(
+                kernel, {k: v[b] for k, v in rv.items()}, {k: v[b] for k, v in cv.items()}), -1))
+             for b in range(B)],
+            lambda rv=rowvals, cv=colvals: torch.stack(
+                tcg.cell_slot_forces_plain(kernel, rv, cv), -1),
+            lambda scale: CELL_ATOL,
+            {"nbytes": B * (len(kernel.row_names) * C * K + len(kernel.col_names) * C * M
+                            + kernel.out_dim * C * K) * 4, "ops": pairs * FORCE_OPS_PER_PAIR}),
+             timed)
+    return out
+
+
+def batched_times(case: dict) -> dict:
+    """A batched kernel's device time (graph replay) and per-call time,
+    beside B unbatched launches captured in one graph, the batched plain
+    version's per-call time and the bound: the batch's bytes over the
+    memory rate or its operations over their units' rates (B times one
+    world's bound)."""
+    b = case["bound"]
+    t_bytes = b["nbytes"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(b["ops"] / PEAK_F32_PER_S, b.get("tc_flops", 0) / PEAK_BF16_TC_PER_S) * 1e3
+    singles = case["singles"]
+    out = {
+        "B": len(singles),
+        "ms": graph_ms(case["batched"]),
+        "call_ms": cuda_ms(case["batched"], iters=50),
+        "unbatched_ms": graph_ms(lambda: [f() for f in singles], iters=4, replays=10),
+        "plain_call_ms": cuda_ms(case["plain"], iters=3, warmup=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    print(f"{case['label']}: device {out['ms']:.6f} ms (graph replay), per call with host "
+          f"work {out['call_ms']:.6f} ms; {out['B']} unbatched launches in one graph "
+          f"{out['unbatched_ms']:.6f} ms; batched plain version {out['plain_call_ms']:.4f} ms "
+          f"a call; bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
+
+
+def boids_attestations(kernels, force_kernels, ts, boids, device: str = "cuda",
+                       cases=BOIDS_ATTESTATIONS,
+                       spec_frames: int = P2P_MAX_PREDICTION) -> dict:
+    """The warmup attestation of a boids runner on each path, fresh (the
+    memo off): ok with every branch of both tensors replayed. On the card,
+    counted around each warmup, the path's force kernel ran F times per
+    rollout (every branch at once) and F times per replayed branch, and no
+    other force kernel ran."""
+    import os
+
+    out = {}
+    memo = os.environ.get("GGRS_ATTEST_CACHE")
+    os.environ["GGRS_ATTEST_CACHE"] = "0"
+    try:
+        for label, kernel, mode, n, branches, force in cases:
+            model = (boids.make_schedule(kernel=kernel, mode=mode),
+                     boids.make_world(n, 2, device=device).commit(), boids.INPUT_SPEC)
+            if device == "cuda":
+                reset_counts(kernels)
+            att = check_attestation(ts, device, branches, spec_frames, model=model,
+                                    label=f"boids {label}")
+            if device == "cuda":
+                launches = {fn.__name__: fn.launches for fn in force_kernels}
+                want = (att["rollouts"] + 2 * branches) * spec_frames
+                check(launches[force] == want and all(
+                    v == 0 for k, v in launches.items() if k != force),
+                    f"attestation boids {label}: launches {launches}, want {force} = "
+                    f"({att['rollouts']} rollouts + {2 * branches} replays) x {spec_frames}")
+                att.update(launches=launches[force],
+                           batched_launches=att["rollouts"] * spec_frames)
+                print(f"attestation boids {label}: {force} launches {launches[force]} = "
+                      f"{att['rollouts']} rollouts x {spec_frames} (one launch a frame for all "
+                      f"{branches} branches) + {2 * branches} serial replays x {spec_frames}")
+            out[label] = att
+    finally:
+        if memo is None:
+            os.environ.pop("GGRS_ATTEST_CACHE", None)
+        else:
+            os.environ["GGRS_ATTEST_CACHE"] = memo
+    return out
+
+
+def check_boids_spec_launches(label: str, run: P2PRun, spec_frames: int, force: str,
+                              others) -> list:
+    """On each peer the force kernel ran once per frame advanced serially
+    (the advances the session asked for, less the frames a hit copied) and
+    ``spec_frames`` times per rollout, and no other force kernel ran;
+    returns each peer's launches a rollout, read from the counters."""
+    per_rollout = []
+    for i, peer in enumerate(run.peers):
+        c = peer["counts"]
+        serial = peer["log"]["advances"] - c["rollback_frames_recovered_total"]
+        got = peer["launches"].get(force, 0)
+        want = serial + spec_frames * c["spec_rollouts_total"]
+        check(got == want, f"{label} peer {i}: {force} launches {got}, {serial} serial "
+                           f"advances + {spec_frames} x {c['spec_rollouts_total']} rollouts")
+        check(all(peer["launches"].get(k, 0) == 0 for k in others),
+              f"{label} peer {i}: another force kernel ran: {peer['launches']}")
+        per_rollout.append((got - serial) / max(1, c["spec_rollouts_total"]))
+    return per_rollout
+
+
+def boids_spec_phase(kernels, force_kernels, ts, tck, tpw, frames: int = 300,
+                     branches: int = BOIDS_SPEC_BRANCHES, n: int = BOIDS_SPEC_N,
+                     device: str = "cuda") -> dict:
+    """Phase 11's boids P2P runs: ``n`` boids, ``kernel="mxu"``, 2 peers
+    speculating with ``branches`` branches, against the same run with
+    speculation off."""
+    from bevy_ggrs_tpu_torch.models import boids
+
+    on_card = device == "cuda"
+    card = smi() if on_card else "cpu"
+    schedule = boids.make_schedule(kernel="mxu")
+    label = f"spec boids-{n} mxu"
+
+    def play(spec):
+        if on_card:
+            reset_counts(kernels)
+        run = P2PRun(lambda dev, inputs: boids_app(n, dev, schedule, inputs, speculation=spec),
+                     device, 2, seed=5, frames=frames, inputs=held_key_runs)
+        run.run(kernels, ts, tck, max_seconds=300.0)
+        return run, run.summary(f"{label} 2 peers B={spec} on {device}")
+
+    on_run, on = play(branches)
+    off_run, off = play(0)
+    spec_frames = on_run.peers[0]["app"].stage.runner.spec_frames
+    for i, peer in enumerate(on_run.peers):
+        runner = peer["app"].stage.runner
+        check(runner.speculation_enabled, f"{label} peer {i}: speculation disabled")
+        check(runner.spec_hits + runner.spec_partial_hits > 0,
+              f"{label} peer {i}: no speculative hit in {runner.rollbacks_total} rollbacks")
+    need = min(30, frames // 20)
+    for i, (a, b) in enumerate(zip(on_run.peers, off_run.peers)):
+        on_s, off_s = on_run.confirmed_stream(a), off_run.confirmed_stream(b)
+        common = sorted(set(on_s) & set(off_s))
+        check(len(common) >= need, f"{label} peer {i}: {len(common)} frames in common with "
+                                   f"the run without speculation, fewer than {need}")
+        check(all(on_s[f] == off_s[f] for f in common),
+              f"{label} peer {i}: the confirmed stream differs from the run without speculation")
+        print(f"{label} peer {i}: speculating stream {len(on_s)} frames, without speculation "
+              f"{len(off_s)} frames, {len(common)} in common, bitwise equal")
+    results = {}
+    force = tpw.pairwise_force_rows_mxu2.__name__
+    others = [k.__name__ for k in force_kernels if k.__name__ != force]
+    if on_card:
+        check_spec_launches(label, on_run, spec_frames)
+        results["mxu2_launches_per_rollout"] = check_boids_spec_launches(
+            label, on_run, spec_frames, force, others)
+        check_p2p_launches(f"{label} speculation off", off, force=force, others=others)
+    results["on"] = {"peers": spec_peer_numbers(on_run, True),
+                     "launches": [dict(p["launches"]) for p in on_run.peers],
+                     "counts": [dict(p["counts"]) for p in on_run.peers],
+                     "advances": [p["log"]["advances"] for p in on_run.peers],
+                     "confirmed_checksums": on["confirmed_checksums"], "seconds": on["seconds"]}
+    results["off"] = {"peers": spec_peer_numbers(off_run, False),
+                      "launches": [dict(p["launches"]) for p in off_run.peers],
+                      "confirmed_checksums": off["confirmed_checksums"],
+                      "seconds": off["seconds"]}
+    for key, run in (("on", on_run), ("off", off_run)):
+        results[key]["busy"] = p2p_busy(run, kernels, ts, tck, iters=1) if on_card else None
+    for key in ("on", "off"):
+        for i, peer in enumerate(results[key]["peers"]):
+            print(f"{label} speculation {key} peer {i}: " + json.dumps(peer) + f"; {card}")
+        print(f"{label} speculation {key}: busy " + json.dumps(results[key]["busy"])
+              + f", {results[key]['confirmed_checksums']} confirmed frames, "
+              f"{results[key]['seconds']:.1f} s; {card}")
+    if on_card:
+        print(f"{label}: {force} launches a rollout on each peer, read from the counters: "
+              + json.dumps(results["mxu2_launches_per_rollout"]))
     return results
 
 
@@ -1990,7 +2359,7 @@ def main() -> int:
     print("p2p busy " + json.dumps(p2p["box2"]["busy"]))
 
     phase("11 speculation on cuda")
-    check_batched_save(ts, tck)
+    check_batched_save(ts, tck, boids)
     ck["batched_save"] = batched_save_times(ts, tck)
     attestation = check_attestation(ts)
     spec = spec_phase(kernels, ts, tck)
@@ -2004,6 +2373,31 @@ def main() -> int:
         for l, c in zip(spec["on"]["launches"], spec["on"]["counts"])]
     print("spec " + json.dumps({"attestation": attestation,
                                 "counts": spec["on"]["counts"]}))
+
+    phase("11b boids under speculation on cuda")
+    batched = check_batched_forces(tpw, tcg, tnb, boids, params)
+    boids_att = boids_attestations(kernels, force_kernels, ts, boids)
+    boids_spec = boids_spec_phase(kernels, force_kernels, ts, tck, tpw)
+    runs = [boids_spec["on"]["launches"], boids_spec["off"]["launches"]]
+    ck["launches"] += sum(l.get("world_checksum", 0) for r in runs for l in r)
+    entries = {"pairwise_force_rows": forces[1024], "pairwise_force_rows_mxu2": mxu2,
+               "pairwise_force_square_mxu_tri": tri, "cell_slot_forces": cell}
+    att_of = {force: boids_att[label] for label, *_, force in BOIDS_ATTESTATIONS}
+    for name, entry in entries.items():
+        entry["max_abs_err"] = max(entry["max_abs_err"], batched[name]["err"])
+        entry["batched"] = batched_times(batched[name]["case"])
+        entry["launches"] += att_of[name]["launches"]
+        entry["batched"]["launches"] = att_of[name]["batched_launches"]
+    # The P2P runs' launches: serial frames and, on the speculating run, F
+    # batched launches a rollout.
+    mxu2["launches"] += sum(l.get("pairwise_force_rows_mxu2", 0) for r in runs for l in r)
+    mxu2["batched"]["launches"] += P2P_MAX_PREDICTION * sum(
+        c["spec_rollouts_total"] for c in boids_spec["on"]["counts"])
+    mxu2["batched"]["launches_per_rollout"] = boids_spec["mxu2_launches_per_rollout"]
+    print("spec boids " + json.dumps({"attestations": boids_att,
+                                      "counts": boids_spec["on"]["counts"],
+                                      "advances": boids_spec["on"]["advances"]}))
+    phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

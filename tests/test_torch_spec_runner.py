@@ -7,8 +7,9 @@ ranking, the forward fill and the periodic extrapolation are bitwise the
 JAX package's on seeded inputs, scalar and vector. Dispatch dedup, restore
 invalidation, attestation (full coverage; the live ring untouched; a
 status-reading model caught; the memo; exhaustive mode), the app's events,
-and the raises for boids, meshes and the predictor. The ledger's outputs
-equal the JAX ledger's.
+the raises for meshes and the predictor, and boids under speculation (the
+force wrappers over a branch axis; a boids app attests on every path).
+The ledger's outputs equal the JAX ledger's.
 """
 
 import json
@@ -517,19 +518,23 @@ def test_exhaustive_verdict_not_served_from_standard_cache(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported raises
+# What is not ported raises; boids speculates
 # ---------------------------------------------------------------------------
 
 
 def test_boids_mesh_and_predictor_raise(monkeypatch):
+    """Boids no longer raises: its runner's warmup attests every branch of
+    both tensors. Meshes and the predictor still raise, naming their
+    ROADMAP items."""
     monkeypatch.delenv("GGRS_PREDICTOR", raising=False)
     runner = SpeculativeRollbackRunner(tboids.make_schedule(kernel="mxu"),
                                        tboids.make_world(16, 2, device="cpu").commit(),
                                        max_prediction=8, num_players=2,
                                        input_spec=tboids.INPUT_SPEC, num_branches=4,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 1"):
-        runner.warmup()  # the first rollout reaches the force wrapper
+    runner.warmup()
+    assert runner.attestation.ok and runner.speculation_enabled
+    assert runner.attestation.real_checked == 2 * 4
     with pytest.raises(NotImplementedError, match="item 8"):
         make_runners(mesh=object())
     for predictor in (True, "default", "weights.ggrspred"):
@@ -546,52 +551,78 @@ def test_boids_mesh_and_predictor_raise(monkeypatch):
 
 
 def _branch_axis_calls():
+    """Each force entry point on a ``[3]`` world of 16 boids, and on one
+    branch of it: ``name -> call(branch or None)``."""
     b, n = 3, 16
-    pos, vel = torch.zeros(b, n, 2), torch.zeros(b, n, 2)
+    rng = np.random.RandomState(1)
+    pos = torch.from_numpy(rng.uniform(-1, 1, (b, n, 2)).astype(np.float32))
+    vel = torch.from_numpy(rng.uniform(-0.05, 0.05, (b, n, 2)).astype(np.float32))
     act = torch.ones(b, n)
+    act[:, ::5] = 0.0
     params = tboids._kernel_params()
     k = tboids.FLOCK_PAIR_KERNEL
-    rows = {name: torch.zeros(b, 4, 2) for name in k.row_names}
-    cols = {name: torch.zeros(b, 4, 8) for name in k.col_names}
+    feats = {"vx": vel[..., 0], "vy": vel[..., 1]}
+    tables = tnb.build_grid_tables(pos, act, tboids.grid_config(n), feats)
+    rows, cols = tnb.gather_tables(k, tables[0].slots, tables[1], tables[2])
+
+    def one(t, i):
+        if isinstance(t, dict):
+            return {name: v if i is None else v[i] for name, v in t.items()}
+        return t if i is None else t[i]
+
     return {
-        "pairwise_force_rows": lambda: tpw.pairwise_force_rows(pos, vel, pos, vel, act, act,
-                                                               **params),
-        "pairwise_force_rows_mxu2": lambda: tpw.pairwise_force_rows_mxu2(
-            pos, vel, pos, vel, act, act, **params),
-        "pairwise_force_square_mxu_tri": lambda: tpw.pairwise_force_square_mxu_tri(
-            pos, vel, act, **params),
-        "cell_slot_forces": lambda: tcg.cell_slot_forces(k, rows, cols),
-        "interact": lambda: tnb.interact(pos, act, k, mode="grid",
-                                         config=tboids.grid_config(n)),
+        "pairwise_force_rows": lambda i: tpw.pairwise_force_rows(
+            *(one(t, i) for t in (pos, vel, pos, vel, act, act)), **params),
+        "pairwise_force_rows_mxu2": lambda i: tpw.pairwise_force_rows_mxu2(
+            *(one(t, i) for t in (pos, vel, pos, vel, act, act)), **params),
+        "pairwise_force_square_mxu_tri": lambda i: tpw.pairwise_force_square_mxu_tri(
+            one(pos, i), one(vel, i), one(act, i), **params),
+        "cell_slot_forces": lambda i: torch.stack(
+            tcg.cell_slot_forces(k, one(rows, i), one(cols, i))),
+        "interact": lambda i: tnb.interact(one(pos, i), one(act, i), k, one(feats, i),
+                                           mode="grid", config=tboids.grid_config(n)),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_branch_axis_calls()))
-def test_force_wrappers_refuse_a_branch_axis(name):
-    """Each force wrapper (on the CPU, before it takes its plain version)
-    refuses a world with a leading branch axis, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 1"):
-        _branch_axis_calls()[name]()
+def test_force_wrappers_take_a_branch_axis(name):
+    """Each force entry point (on the CPU, its plain version) takes a world
+    with a leading branch axis, and each branch of the result is bitwise
+    the call on that branch alone."""
+    call = _branch_axis_calls()[name]
+    batched = call(None)
+    assert torch.isfinite(batched).all() and batched.abs().max() > 0
+    for b in range(3):
+        assert torch.equal(batched[b] if name != "cell_slot_forces" else batched[:, b],
+                           call(b)), (name, b)
+
+
+def boids_plugin(kernel, mode, branches=4, n=32):
+    return (GGRSPlugin(tboids.INPUT_SPEC)
+            .with_input_system(lambda h, app: np.uint8(0))
+            .register_rollback_component("position", shape=(2,))
+            .register_rollback_component("velocity", shape=(2,))
+            .register_rollback_component("leader_handle", dtype=torch.int32, default=-1)
+            .register_rollback_resource("frame_count", np.uint32(0))
+            .with_rollback_schedule(tboids.make_schedule(kernel=kernel, mode=mode))
+            .with_num_players(P).with_world_capacity(n)
+            .with_setup_system(lambda world, app: tboids.spawn_flock(world, n, P))
+            .with_device("cpu").with_speculation(branches))
 
 
 @pytest.mark.parametrize("kernel,mode", [("pallas", "dense"), ("mxu", "dense"),
                                          ("pallas", "grid")])
-def test_boids_app_with_speculation_raises_at_build(kernel, mode):
-    """A boids app with speculation fails at build, where the stage's
-    warmup runs the first rollout into a force wrapper, whichever kernel
-    and interaction mode the schedule uses."""
-    plugin = (GGRSPlugin(tboids.INPUT_SPEC)
-              .with_input_system(lambda h, app: np.uint8(0))
-              .register_rollback_component("position", shape=(2,))
-              .register_rollback_component("velocity", shape=(2,))
-              .register_rollback_component("leader_handle", dtype=torch.int32, default=-1)
-              .register_rollback_resource("frame_count", np.uint32(0))
-              .with_rollback_schedule(tboids.make_schedule(kernel=kernel, mode=mode))
-              .with_num_players(P).with_world_capacity(32)
-              .with_setup_system(lambda world, app: tboids.spawn_flock(world, 32, P))
-              .with_device("cpu").with_speculation(4))
-    with pytest.raises(NotImplementedError, match="item 1"):
-        plugin.build()
+def test_boids_app_with_speculation_attests(kernel, mode, monkeypatch):
+    """A boids app with speculation builds: the stage's warmup attests the
+    rollout against the serial burst on every branch of both tensors,
+    whichever kernel and interaction mode the schedule uses."""
+    monkeypatch.setenv("GGRS_ATTEST_CACHE", "0")
+    app = boids_plugin(kernel, mode).build()
+    runner = app.stage.runner
+    assert isinstance(runner, SpeculativeRollbackRunner)
+    report = runner.attestation
+    assert report.ok and runner.speculation_enabled, report
+    assert report.real_checked == 2 * 4 and report.structured_checked
 
 
 # ---------------------------------------------------------------------------

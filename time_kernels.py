@@ -38,7 +38,14 @@ checksum's save over a branch axis (the speculative rollout's, one launch
 for every branch), where the tree has it: ``state.ring_save`` of box_game
 worlds at B = 64 and B = 256 into ``[B, 8]`` stacks of rings, with its
 device milliseconds by graph replay, its kernels and host-to-device copies
-a call, its milliseconds a call and the SHA-256 of the saved rows.
+a call, its milliseconds a call and the SHA-256 of the saved rows. And
+the four force kernels over a leading branch axis (boids under
+speculation, one launch for every branch), where the tree takes one, at
+``chip_smoke.py`` phase 11's shapes: the f32 kernel at B = 16 and the
+general tensor-core kernel at B = 128 (R = N = 1,024), the triangle at B =
+8 (N = 4,096) and the cell kernel at B = 2 (the boids-32,768 grid), on
+``chip_smoke.branch_flocks`` data, with the same four numbers as the
+unbatched kernels.
 
 Only public signatures are used, so any tree of the port since they were
 written runs. The last lines are the mean of each tree's turns, whether
@@ -156,6 +163,44 @@ def batched_save_calls(cs) -> dict:
     return out
 
 
+def batched_force_calls(cs, boids, tpw, tcg, tnb) -> dict:
+    """The four force kernels over a leading branch axis at phase 11's
+    shapes; empty for a tree whose wrappers refuse a branch axis."""
+    if hasattr(tpw, "check_no_branch_axis"):
+        return {}
+    params = boids._kernel_params()
+    out = {}
+    base = boids.make_world(1024, 2, device="cuda").commit().components["position"]
+    for name, fn, plain, B in (
+        ("f32", tpw.pairwise_force_rows, tpw.pairwise_force_rows_plain, 16),
+        ("mxu2", tpw.pairwise_force_rows_mxu2, tpw.pairwise_force_rows_mxu2_plain, 128),
+    ):
+        pos, vel, act = cs.branch_flocks(B, base, seed=B)
+        args = (pos, vel, pos, vel, act, act)
+        out[f"{name}_B={B}_R=N=1024"] = timed(
+            cs, lambda fn=fn, args=args: fn(*args, **params), fn(*args, **params),
+            plain(*args, **params))
+    base = boids.make_world(4096, 2, device="cuda").commit().components["position"]
+    tri = cs.branch_flocks(8, base, seed=8)
+    out["tri_B=8_N=4096"] = timed(
+        cs, lambda: tpw.pairwise_force_square_mxu_tri(*tri, **params),
+        tpw.pairwise_force_square_mxu_tri(*tri, **params),
+        tpw.pairwise_force_square_mxu_tri_plain(*tri, **params))
+    n = 32768
+    base = boids.make_world(n, 2, device="cuda").commit().components["position"]
+    config = boids.grid_config(n)
+    _, rowvals, colvals = cs.batched_grid_operands(tnb, boids, *cs.branch_flocks(2, base, 2),
+                                                   config)
+    fk = boids.FLOCK_PAIR_KERNEL
+    out[f"cell_B=2_C={config.num_cells}_K={config.cell_capacity}_M={config.padded_cols}"] = {
+        **timed(cs, lambda: tcg.cell_slot_forces(fk, rowvals, colvals),
+                tcg.cell_slot_forces(fk, rowvals, colvals),
+                tcg.cell_slot_forces_plain(fk, rowvals, colvals)),
+        "live_pairs": cs.live_pairs(rowvals, colvals),
+    }
+    return out
+
+
 def measure(tree: pathlib.Path) -> dict:
     """Import the port from ``tree`` and time its four force kernels and
     its checksum."""
@@ -213,6 +258,7 @@ def measure(tree: pathlib.Path) -> dict:
     for n in (1024, 32768):
         out.update(checksum_calls(cs, boids, n))
     out.update(batched_save_calls(cs))
+    out.update(batched_force_calls(cs, boids, tpw, tcg, tnb))
     return out
 
 
@@ -251,9 +297,10 @@ def main() -> int:
     print("mean " + json.dumps({tree: {k: {key: sum(v) / len(v) for key, v in d.items()}
                                        for k, d in kernels.items()}
                                 for tree, kernels in means.items()}))
+    names = sorted({kernel for row in rows for kernel in row} - {"tree"})
     print("same bits in every turn " + json.dumps({
         kernel: len({row[kernel]["sha256"] for row in rows if kernel in row}) == 1
-        for kernel in rows[0] if kernel != "tree"}))
+        for kernel in names}))
     import chip_smoke as cs
     print(cs.smi())
     return 0
