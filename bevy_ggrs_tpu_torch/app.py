@@ -353,10 +353,13 @@ class GGRSPlugin:
         ``attest`` (default), warmup checks that the batched rollout and
         the serial burst agree bitwise for this model and disables
         speculation, with a ``SPECULATION_DISABLED`` event in
-        ``app.events``, when they do not. ``predictor``: None (with
-        ``GGRS_PREDICTOR`` unset or off) or False; the learned predictor
-        is not ported yet, and any other value raises when the app is
-        built."""
+        ``app.events``, when they do not. ``predictor`` configures the
+        learned input predictor seeding the branch tree (see
+        :class:`~bevy_ggrs_tpu_torch.spec_runner.SpeculativeRollbackRunner`;
+        ``None`` consults ``GGRS_PREDICTOR``). Configure the same weights
+        on the session with ``SessionBuilder.with_input_predictor``, which
+        folds their hash into the handshake, so peers with other weights
+        are refused instead of speculating on other trees."""
         n = int(num_branches)
         self.speculation = n if n > 0 else None
         self.speculation_opts = {"attest": bool(attest)}

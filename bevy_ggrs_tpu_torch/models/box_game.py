@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from bevy_ggrs_tpu_torch.ops.exact import sqrt_f32
 from bevy_ggrs_tpu_torch.schedule import InputSpec, PlayerInputs, Schedule
 from bevy_ggrs_tpu_torch.state import HostWorld, TypeRegistry, WorldState, resolve_device
 
@@ -90,11 +91,10 @@ def make_world(num_players: int, capacity: int = 16, device=None) -> HostWorld:
 def _magnitude(vx: torch.Tensor, vy: torch.Tensor, vz: torch.Tensor) -> torch.Tensor:
     """``sqrt(vx*vx + vy*vy + vz*vz)`` with every operation correctly
     rounded in float32. Products and sums stay separate operations (a
-    fused multiply-add would change bits), and the root is taken in
-    float64 and rounded once: torch's vectorised float32 ``sqrt`` on the
-    CPU is off by an ulp for some inputs, while a float64 root rounded to
-    float32 equals the correctly rounded float32 root."""
-    return torch.sqrt((vx * vx + vy * vy + vz * vz).double()).float()
+    fused multiply-add would change bits), and the root is
+    :func:`~bevy_ggrs_tpu_torch.ops.exact.sqrt_f32`: torch's vectorised
+    float32 ``sqrt`` on the CPU is off by an ulp for some inputs."""
+    return sqrt_f32(vx * vx + vy * vy + vz * vz)
 
 
 def move_cube_system(state: WorldState, inputs: PlayerInputs) -> WorldState:

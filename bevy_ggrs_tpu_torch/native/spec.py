@@ -84,14 +84,13 @@ class NativeSpecBuilder:
     # Predictor seeding --------------------------------------------------
 
     def seed(self, anchor: int, pred_seed) -> None:
-        """Install a predictor seed for ``anchor`` (the JAX package's
-        ``predict.model.PredictorSeed``: ``traj[F, P]``, ``cand[P, 1, R]``,
-        ``valid[P, 1, R]`` and ``content_hash``): the next build whose
-        anchor matches uses the predictor trajectory as its effective base
-        and the predictor ranking as its candidate rows, and folds the seed
-        bytes into the dedup signature (mirroring the Python sig-tuple
-        append). The port has no predictor yet (ROADMAP.md, port queue
-        item 5); the seed is bound and tested against the JAX package's."""
+        """Install a predictor seed for ``anchor``
+        (:class:`~bevy_ggrs_tpu_torch.predict.model.PredictorSeed`:
+        ``traj[F, P]``, ``cand[P, 1, R]``, ``valid[P, 1, R]`` and
+        ``content_hash``): the next build whose anchor matches uses the
+        predictor trajectory as its effective base and the predictor
+        ranking as its candidate rows, and folds the seed bytes into the
+        dedup signature (mirroring the Python sig-tuple append)."""
         traj = _raw(np.asarray(pred_seed.traj, dtype=self._dtype))
         cand = np.asarray(pred_seed.cand, dtype=self._dtype)
         n_rank = int(cand.shape[-1])

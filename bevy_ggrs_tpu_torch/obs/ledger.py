@@ -30,9 +30,15 @@ counters:
   disabled, restore-path recovery).
   ``full + partial + miss + unmatched == rollbacks_total``.
 
-The ``null_ledger`` singleton keeps every call site unconditional. The
-JAX module's counterfactual replay harness and its command line wait for
-the predictor and the other models (ROADMAP.md, port queue items 4-5).
+The ``null_ledger`` singleton keeps every call site unconditional.
+
+The counterfactual replay harness (:func:`replay_config`,
+:func:`replay_baseline`, ``python -m bevy_ggrs_tpu_torch.obs.ledger
+replay``) scores branch-ranking policies (``POLICY_REGISTRY``:
+``current``, ``repeat_last``, ``learned``) over the canonical scripted
+input logs of the four models' speculating configurations, host-only, with
+the speculative runner's own tree code; its scores equal the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from __future__ import annotations
 import json
 import time
 from collections import Counter, deque
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -370,3 +376,289 @@ class _NullLedger:
 
 
 null_ledger = _NullLedger()
+
+
+# ----------------------------------------------------------------------
+# Counterfactual ranking harness (offline, host-only).
+# ----------------------------------------------------------------------
+
+#: Pluggable ranking-policy registry. A policy is registered under a name
+#: as a FACTORY: it receives the fresh per-run ``_ReplayBuilder`` (the
+#: branch-tree geometry and the growing canonical input log; it may swap
+#: the log for a native ``MirroredLog`` or attach a ``_predictor``) and
+#: returns the per-anchor callable ``fn(anchor, last, known, mask) ->
+#: (bits, n_branches)``. Built-ins:
+#:
+#: - ``current``: the production structured tree (history-ranked
+#:   candidates and periodic extrapolation, through the native builder
+#:   when it loads);
+#: - ``repeat_last``: the single forward-fill branch, the reference
+#:   engine's whole prediction policy and the floor any learned ranker
+#:   must clear;
+#: - ``learned``: the ``predict/`` tier, the committed int8 MLP artifact
+#:   seeding the same structured tree.
+PolicyFactory = Callable[..., Callable]
+
+POLICY_REGISTRY: Dict[str, PolicyFactory] = {}
+
+
+def register_policy(name: str):
+    """Decorator: ``@register_policy("mine")`` over a policy factory."""
+
+    def deco(factory):
+        POLICY_REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def _replay_configs() -> Dict[str, dict]:
+    """The live paced pairs' model configs (the JAX bench's model zoo
+    shapes) and the 8-player, 1,024-branch spectator config, with the
+    benches' key cycles (``keys[(frame // 3 + handle) % len(keys)]``)."""
+    from bevy_ggrs_tpu_torch.models import boids, box_game, neural_bots, projectiles
+
+    box_keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT, box_game.INPUT_DOWN, 0]
+    return {
+        "box_game": dict(input_spec=box_game.INPUT_SPEC, players=2, branches=64,
+                         spec_frames=8, keys=box_keys),
+        "boids": dict(input_spec=boids.INPUT_SPEC, players=2, branches=16, spec_frames=8,
+                      keys=[boids.INPUT_UP, boids.INPUT_RIGHT, boids.INPUT_DOWN, 0]),
+        "projectiles": dict(input_spec=projectiles.INPUT_SPEC, players=4, branches=64,
+                            spec_frames=8,
+                            keys=[projectiles.INPUT_UP, projectiles.INPUT_FIRE,
+                                  projectiles.INPUT_RIGHT, 0]),
+        "neural_bots": dict(input_spec=neural_bots.INPUT_SPEC, players=2, branches=32,
+                            spec_frames=8, keys=[1, 2, 4, 0]),
+        "box_game_8p_B1024": dict(input_spec=box_game.INPUT_SPEC, players=8, branches=1024,
+                                  spec_frames=12, keys=box_keys),
+    }
+
+
+class _ReplayBuilder:
+    """Host-only stand-in that borrows the speculative runner's unbound
+    branch-tree methods, so the harness builds bitwise the tree the live
+    runner dispatches without a world, a schedule or an executor."""
+
+    def __init__(self, input_spec, players, branches, frames, values):
+        from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner as R
+
+        self.input_spec = input_spec
+        self.num_players = int(players)
+        self.num_branches = int(branches)
+        self.spec_frames = int(frames)
+        self._branch_values = list(values)
+        self._input_log: dict = {}
+        self._structured_bits = R._structured_bits.__get__(self)
+        self._candidate_values = R._candidate_values.__get__(self)
+        self._extrapolate_base = R._extrapolate_base.__get__(self)
+        self._history_fingerprint = R._history_fingerprint.__get__(self)
+
+
+def _branch_values_for(input_spec) -> list:
+    # The runner's default universe.
+    if getattr(input_spec, "values", None):
+        return list(input_spec.values)
+    return list(range(16))
+
+
+@register_policy("current")
+def _policy_current(builder: "_ReplayBuilder"):
+    """The production structured tree, native builder when it loads."""
+    from bevy_ggrs_tpu_torch.native import spec as native_spec
+
+    native = native_spec.make_spec_builder(
+        builder.input_spec, builder.num_players, builder.num_branches,
+        builder.spec_frames, builder._branch_values,
+    )
+    if native is not None:
+        builder._input_log = native_spec.MirroredLog(native)
+
+    def fn(anchor, last, known, mask):
+        if native is not None:
+            bits, _ = native.build(anchor, None, known, mask, False, None)
+        else:
+            bits = builder._structured_bits(np.asarray(last), known, mask, anchor)
+        return np.asarray(bits), builder.num_branches
+
+    return fn
+
+
+@register_policy("repeat_last")
+def _policy_repeat_last(builder: "_ReplayBuilder"):
+    """The single forward-fill branch."""
+    from bevy_ggrs_tpu_torch.spec_runner import _forward_fill
+
+    def fn(anchor, last, known, mask):
+        base = _forward_fill(np.asarray(last), known, mask)
+        return np.broadcast_to(base, (1,) + base.shape).copy(), 1
+
+    return fn
+
+
+@register_policy("learned")
+def _policy_learned(builder: "_ReplayBuilder"):
+    """The committed int8 MLP artifact bound to this config's universe,
+    seeding the structured tree the live path builds (branch 0 stays the
+    forward fill inside ``_structured_bits``)."""
+    from bevy_ggrs_tpu_torch.predict import InputPredictor, load_default
+
+    spec = builder.input_spec
+    n_field = 1
+    if getattr(spec, "shape", ()):
+        n_field = int(np.prod(spec.shape, dtype=np.int64))
+    bound = InputPredictor(load_default()).bind(
+        builder._branch_values, spec.zeros_np(1).dtype, n_field)
+    if bound is None:
+        raise ValueError(
+            "learned policy: predictor does not apply to this config "
+            f"(n_field={n_field}, universe={len(builder._branch_values)})")
+    builder._predictor = bound
+
+    def fn(anchor, last, known, mask):
+        bits = builder._structured_bits(np.asarray(last), known, mask, anchor)
+        return np.asarray(bits), builder.num_branches
+
+    return fn
+
+
+#: Registration-ordered policy names; the command line scores them all.
+POLICIES: Tuple[str, ...] = tuple(POLICY_REGISTRY)
+
+
+def replay_config(name: str, cfg: dict, frames: int, policies=POLICIES) -> Dict[str, dict]:
+    """Score each ranking policy over ``frames`` anchors of the canonical
+    scripted input log of one model config. Host work only: branch tensors
+    are built and prefix-matched against the scripted truth; no rollout
+    runs (the waste is the dispatch-side B x F accounting the live ledger
+    records per rollout)."""
+    from bevy_ggrs_tpu_torch.parallel.speculate import match_branch
+
+    spec = cfg["input_spec"]
+    P, B, F = cfg["players"], cfg["branches"], cfg["spec_frames"]
+    keys = cfg["keys"]
+    values = _branch_values_for(spec)
+    zeros = spec.zeros_np(P)
+    dtype = spec.zeros_np(1).dtype
+
+    def frame_input(f: int) -> np.ndarray:
+        row = zeros.copy()
+        for h in range(P):
+            row[h] = np.asarray(keys[(f // 3 + h) % len(keys)], dtype)
+        return row
+
+    # The span is scored as pure prediction (no pinned known inputs):
+    # pinning would shift every policy alike.
+    known = np.broadcast_to(zeros, (F,) + zeros.shape).copy()
+    mask = np.zeros((F, P), dtype=bool)
+
+    out: Dict[str, dict] = {}
+    for policy in policies:
+        factory = POLICY_REGISTRY.get(policy)
+        if factory is None:
+            raise ValueError(f"unknown ranking policy {policy!r} "
+                             f"(registered: {', '.join(POLICY_REGISTRY)})")
+        builder = _ReplayBuilder(spec, P, B, F, values)
+        policy_fn = factory(builder)
+        ledger = SpeculationLedger(capacity=frames + 1)
+        full_hits = 0
+        anchors = 0
+        builder._input_log[0] = frame_input(0)
+        for a in range(1, max(2, frames - F)):
+            last = builder._input_log[a - 1]
+            bits, n_branches = policy_fn(a, last, known, mask)
+            truth = np.stack([frame_input(a + t) for t in range(F)])
+            branch, depth = match_branch(np.asarray(bits), truth)
+            branch, depth = int(branch), int(depth)
+            anchors += 1
+            ledger.record_rollout(n_branches * F)
+            blame = blame_divergence(np.asarray(bits)[0], truth)
+            outcome = "full" if depth == F else ("partial" if depth > 0 else "miss")
+            if depth == F:
+                full_hits += 1
+            ledger.record(
+                outcome, depth=F, frames_recovered=depth, frames_resimulated=F - depth,
+                branch=branch if depth > 0 else None, rank=branch if depth > 0 else None,
+                blame_player=None if blame is None else blame[1],
+                blame_frame=None if blame is None else a + blame[0],
+                load_frame=a,
+            )
+            builder._input_log[a] = frame_input(a)
+        s = ledger.summary()
+        out[policy] = {
+            "anchors": anchors,
+            "full_hits": full_hits,
+            "full_hit_rate": round(full_hits / anchors, 4) if anchors else 0.0,
+            "hit_rank_p50": s["spec_hit_rank_p50"],
+            "hit_rank_p99": s["spec_hit_rank_p99"],
+            "waste_ratio": round(s["spec_waste_ratio"], 4),
+            "blame_top_player_share": round(s["blame_top_player_share"], 4),
+            "mean_commit_depth": (round(s["frames_recovered_total"] / anchors, 3)
+                                  if anchors else 0.0),
+        }
+    return out
+
+
+def replay_baseline(frames: int = 240, configs: Optional[List[str]] = None,
+                    policies=POLICIES) -> dict:
+    """Every config x policy scored over the same canonical input log:
+    the table (``spec_baseline.json`` in the JAX package's layout) a
+    learned ranking policy must beat."""
+    all_cfgs = _replay_configs()
+    names = configs or list(all_cfgs)
+    table = {
+        "generated_by": "python -m bevy_ggrs_tpu_torch.obs.ledger replay",
+        "frames_per_config": int(frames),
+        "policies": list(policies),
+        "configs": {},
+    }
+    for name in names:
+        cfg = all_cfgs[name]
+        table["configs"][name] = {
+            "players": cfg["players"],
+            "branches": cfg["branches"],
+            "spec_frames": cfg["spec_frames"],
+            "policies": replay_config(name, cfg, frames, policies),
+        }
+    return table
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m bevy_ggrs_tpu_torch.obs.ledger",
+                                 description="Speculation-ledger offline tools.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    rp = sub.add_parser("replay", help="score branch-ranking policies over the canonical "
+                                       "input log and write the baseline table")
+    rp.add_argument("--frames", type=int, default=240,
+                    help="anchors scored per config (default 240)")
+    rp.add_argument("--configs", default=None,
+                    help="comma-separated config subset (default: all)")
+    rp.add_argument("--policies", default=",".join(POLICIES),
+                    help="comma-separated policy subset")
+    rp.add_argument("--out", default="spec_baseline.json",
+                    help="output table path (default spec_baseline.json)")
+    args = ap.parse_args(argv)
+
+    if args.cmd == "replay":
+        table = replay_baseline(
+            frames=args.frames,
+            configs=args.configs.split(",") if args.configs else None,
+            policies=tuple(args.policies.split(",")),
+        )
+        with open(args.out, "w") as f:
+            json.dump(table, f, indent=2)
+            f.write("\n")
+        for name, cfg in table["configs"].items():
+            for policy, row in cfg["policies"].items():
+                print(f"{name:>20} {policy:>12}: hit_rate={row['full_hit_rate']:.3f} "
+                      f"rank_p50={row['hit_rank_p50']:.0f} waste={row['waste_ratio']:.3f}")
+        print(f"baseline table -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -66,7 +66,8 @@ class SessionBuilder:
         self.seed = 0
         self.desync_detection = "auto"
         self.interaction_mode: Optional[str] = None
-        # The learned input predictor is not ported: always off.
+        # The learned input predictor: its weights' hash is the digest the
+        # handshake advertises and enforces (see with_input_predictor).
         self.input_predictor = None
         self._players: Dict[int, PlayerType] = {}
         self._spectators: List[object] = []
@@ -134,19 +135,35 @@ class SessionBuilder:
         return self
 
     def with_input_predictor(self, predictor) -> "SessionBuilder":
-        """The learned input predictor is not ported yet (ROADMAP.md, port
-        queue item 5, 'Predictor'); until it is, prediction is off and the
-        handshake's config digest is 0, as the JAX package sends with
-        prediction off."""
-        raise NotImplementedError(
-            "the learned input predictor is not ported yet (ROADMAP.md, "
-            "port queue item 5: 'Predictor')"
-        )
+        """Configure the learned input predictor
+        (:mod:`bevy_ggrs_tpu_torch.predict`) for sessions this builder
+        starts.
+
+        ``predictor``: ``True``/``"default"`` for the committed default
+        artifact, an artifact path, :class:`PredictorWeights`, an
+        :class:`InputPredictor`, ``False`` to force prediction off
+        (ignoring ``GGRS_PREDICTOR``), or ``None`` (the default) to consult
+        the ``GGRS_PREDICTOR`` env var at session start.
+
+        The resolved weights' 64-bit content hash becomes the session's wire
+        config digest: every sync-handshake leg carries it, and a peer
+        advertising another digest is refused with a typed
+        ``CONFIG_MISMATCH`` event (the handshake does not complete; never a
+        desync). The weights are validated here, so a bad path fails this
+        call and not a session mid-start."""
+        from bevy_ggrs_tpu_torch.predict import resolve_predictor_config
+
+        resolve_predictor_config(predictor)  # validate eagerly
+        self.input_predictor = predictor
+        return self
 
     def _config_digest(self) -> int:
-        """The wire config digest for sessions started now: 0, prediction
-        off (the JAX package's value for a session without a predictor)."""
-        return 0
+        """The wire config digest for sessions started now: the resolved
+        predictor's weight content hash, 0 when prediction is off."""
+        from bevy_ggrs_tpu_torch.predict import resolve_predictor_config
+
+        ip = resolve_predictor_config(self.input_predictor)
+        return 0 if ip is None else ip.content_hash
 
     def with_desync_detection(self, interval_frames) -> "SessionBuilder":
         """Configure the P2P checksum exchange (the ggrs

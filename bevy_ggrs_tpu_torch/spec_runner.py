@@ -28,9 +28,11 @@ and the branch match run in the native core (``native/spec.py``,
 reading the session's native queues in-process when it has them. Under
 ``GGRS_NO_NATIVE=1`` they run as NumPy code, bitwise the JAX package's
 pure-Python path; the two paths are bitwise equal
-(``tests/test_torch_native_spec.py``). The learned predictor (ROADMAP.md,
-port queue item 5) and device meshes (item 8) raise
-``NotImplementedError`` here.
+(``tests/test_torch_native_spec.py``). A learned input predictor
+(``predict/``, ``predictor=``) seeds the tree on either path: its rollout
+becomes the tree's base and its first-step ranking the candidate order,
+branch 0 staying the session's forward-fill prediction. Device meshes
+(ROADMAP.md, port queue item 8) raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import time
 import types
 import zlib
 from typing import List, Optional
@@ -55,6 +58,7 @@ from bevy_ggrs_tpu_torch.parallel.speculate import (
     enumerate_branches,
     match_branch,
 )
+from bevy_ggrs_tpu_torch.predict.model import resolve_predictor
 from bevy_ggrs_tpu_torch.runner import RollbackRunner, _Step
 from bevy_ggrs_tpu_torch.schedule import Schedule
 from bevy_ggrs_tpu_torch.state import (
@@ -119,7 +123,7 @@ class _Unkeyable(Exception):
 
 def _value_fp(v, depth: int = 0):
     """Conservative structural fingerprint of a closure-captured value."""
-    if depth > 4:
+    if depth > 6:
         raise _Unkeyable(type(v))
     if isinstance(v, (int, float, str, bool, bytes, type(None))):
         return v
@@ -135,6 +139,11 @@ def _value_fp(v, depth: int = 0):
         return tuple(sorted((k, _value_fp(x, depth + 1)) for k, x in v.items()))
     if isinstance(v, torch.dtype):
         return ("dtype", str(v))
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        # A model's constant description (a PairKernel): its fields.
+        return ("dataclass", type(v).__qualname__,
+                tuple((f.name, _value_fp(getattr(v, f.name), depth + 1))
+                      for f in dataclasses.fields(v)))
     if isinstance(v, (np.ndarray, torch.Tensor)):
         arr = v.detach().cpu() if isinstance(v, torch.Tensor) else np.asarray(v)
         if isinstance(arr, torch.Tensor):
@@ -176,13 +185,18 @@ def _fn_fp(fn, depth: int = 0):
     Modules and callables of other modules count by name; callables of
     the same module are fingerprinted recursively. Anything opaque raises
     :class:`_Unkeyable`."""
-    if depth > 4:
+    if depth > 6:
         raise _Unkeyable(type(fn))
     if isinstance(fn, functools.partial):
         return ("partial", _fn_fp(fn.func, depth + 1), _value_fp(fn.args, depth + 1),
                 _value_fp(fn.keywords, depth + 1))
     if getattr(fn, "__self__", None) is not None:
         raise _Unkeyable(type(fn))  # a bound method: instance state is opaque
+    if hasattr(fn, "cache_info") and hasattr(fn, "__wrapped__"):
+        # functools.lru_cache: the same values as the function it caches.
+        # Another wrapper (functools.wraps) is fingerprinted as its own
+        # code and closure, the settings it carries included.
+        return ("lru_cache", _fn_fp(fn.__wrapped__, depth + 1))
     code = getattr(fn, "__code__", None)
     if code is None:
         raise _Unkeyable(type(fn))
@@ -250,6 +264,9 @@ def _attestation_key(runner: "SpeculativeRollbackRunner"):
             runner.executor.max_frames,
             runner.ring.depth,
             tuple(np.asarray(v).tobytes() for v in runner._branch_values),
+            # A predictor-seeded tree enumerates from another base and
+            # candidate order: its verdict is keyed by the weights it used.
+            None if runner._predictor is None else runner._predictor.content_hash,
         )
     except Exception:  # noqa: BLE001 - anything unkeyable is a miss
         return None
@@ -351,20 +368,6 @@ def _attestation_structured_bits(runner: "SpeculativeRollbackRunner",
     return runner._structured_bits(last, known, mask)
 
 
-def _check_predictor(predictor) -> None:
-    """``None`` (with ``GGRS_PREDICTOR`` unset or off) and ``False`` mean no
-    predictor, as in the JAX package; any other value raises."""
-    if predictor is None:
-        env = os.environ.get("GGRS_PREDICTOR", "").strip()
-        if not env or env.lower() in ("0", "off", "false"):
-            return
-    elif predictor is False:
-        return
-    raise NotImplementedError(
-        "the learned input predictor is not ported yet (ROADMAP.md, port queue "
-        "item 5: 'Predictor')")
-
-
 class SpeculativeRollbackRunner(RollbackRunner):
     """Drop-in :class:`RollbackRunner` that precomputes rollback
     recoveries.
@@ -374,9 +377,13 @@ class SpeculativeRollbackRunner(RollbackRunner):
     single-change tree with known-input pinning), ``branch_values`` (the
     candidate input values the tree enumerates; default the model's
     ``InputSpec.values``, else 0..15), ``spec_frames`` (rollout depth,
-    default ``max_prediction``) and ``seed`` (the sampler's generator).
-    Call :meth:`tick` once a P2P tick, or :meth:`handle_requests` then
-    :meth:`speculate`. Counters: ``spec_hits``, ``spec_partial_hits``,
+    default ``max_prediction``), ``seed`` (the sampler's generator) and
+    ``predictor`` (the learned input predictor: ``None`` consults
+    ``GGRS_PREDICTOR``, off by default; ``False``, ``True``/``"default"``,
+    an artifact path, weights or a predictor, as
+    :func:`~bevy_ggrs_tpu_torch.predict.model.resolve_predictor_config`
+    takes them; a custom sampler turns it off). Call :meth:`tick` once a
+    P2P tick, or :meth:`handle_requests` then :meth:`speculate`. Counters: ``spec_hits``, ``spec_partial_hits``,
     ``spec_misses``, ``rollback_frames_recovered_total``,
     ``spec_rollouts_total``, and the metrics sink.
     """
@@ -402,7 +409,6 @@ class SpeculativeRollbackRunner(RollbackRunner):
             raise NotImplementedError(
                 "speculation over a device mesh is not ported yet (ROADMAP.md, "
                 "port queue item 8: 'Sharding')")
-        _check_predictor(predictor)
         super().__init__(schedule, initial_state, max_prediction, num_players,
                          input_spec, **kwargs)
         self.spec_frames = int(spec_frames or max_prediction)
@@ -443,8 +449,18 @@ class SpeculativeRollbackRunner(RollbackRunner):
         # mutation into the C++ side: mutate it, never reassign it.
         self._input_log = (native_spec.MirroredLog(self._native)
                            if self._native is not None else {})
-        self._predictor = None
+        # The learned input predictor, bound to this session's candidate
+        # universe when its weights apply (a scalar payload, a universe
+        # within the trained value slots), else None and the tree keeps its
+        # heuristic ranking. The memo carries one anchor's seed from the
+        # dedup signature to the tree build inside one tick.
+        shape = tuple(getattr(input_spec, "shape", ()) or ())
+        n_field = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        self._predictor = (resolve_predictor(predictor, self._branch_values,
+                                             input_spec.zeros_np(1).dtype, n_field)
+                           if sampler is None else None)
         self._seed_memo = None
+        self.predictor_rank_builds = 0
         # Deferred checksum reports: (device lanes, [(row, frame)]), read at
         # the start of the next tick.
         self._pending_reports = []
@@ -454,6 +470,22 @@ class SpeculativeRollbackRunner(RollbackRunner):
         self.spec_misses = 0
         self.rollback_frames_recovered_total = 0
         self.spec_rollouts_total = 0  # rollouts dispatched (warmup and attestation too)
+
+    def _predictor_seed(self, anchor: int):
+        """The predictor's tree seed for ``anchor`` (None without a
+        predictor), recomputed from the current input log (a correction may
+        rewrite frames of its window between ticks) and memoized, so the
+        dedup signature and :meth:`_structured_bits` of one tick share one
+        rollout."""
+        if self._predictor is None:
+            return None
+        t0 = time.perf_counter()
+        seed = self._predictor.seed(self._input_log, anchor, self.spec_frames,
+                                    self.num_players)
+        self.predictor_rank_builds += 1
+        self.metrics.observe("predictor_rank_ms", (time.perf_counter() - t0) * 1e3)
+        self._seed_memo = (anchor, seed)
+        return seed
 
     def invalidate_speculation(self) -> None:
         """Drop every speculative transient: the pending rollout, its dedup
@@ -727,7 +759,9 @@ class SpeculativeRollbackRunner(RollbackRunner):
         and the input-log window the tree reads; a live-state anchor or a
         random sampler never dedups (sig None). The native builder reads
         the known inputs in-process when the session's queues are native
-        (``qset_ptr``), and the known-inputs query drops out of the tick."""
+        (``qset_ptr``), and the known-inputs query drops out of the tick.
+        A predictor's seed for the anchor folds into the signature and,
+        when the tree is built, replaces its base and candidate ranking."""
         dedup = anchor < end and self._sampler is None
         if self._native is not None:
             qs_ptr = self._native.qset_ptr(session)
@@ -735,6 +769,8 @@ class SpeculativeRollbackRunner(RollbackRunner):
             if qs_ptr is None:
                 with self.metrics.timer("known_inputs_query"):
                     known, known_mask = self._known_inputs(anchor, session)
+            if self._predictor is not None:
+                self._native.seed(anchor, self._predictor_seed(anchor))
             with self.metrics.timer("structured_bits_build"):
                 bits, sig = self._native.build(
                     anchor, qs_ptr, known, known_mask,
@@ -745,17 +781,19 @@ class SpeculativeRollbackRunner(RollbackRunner):
             last = self.input_spec.zeros_np(self.num_players)
         with self.metrics.timer("known_inputs_query"):
             known, known_mask = self._known_inputs(anchor, session)
-        sig = self._dedup_sig(anchor, last, known, known_mask) if dedup else None
+        pseed = self._predictor_seed(anchor)
+        sig = self._dedup_sig(anchor, last, known, known_mask, pseed) if dedup else None
         if dedup and allow_skip and sig == self._spec_sig:
             return None, sig
         return self._branch_tensor(last, known, known_mask, anchor), sig
 
-    def _dedup_sig(self, anchor: int, last, known, known_mask) -> tuple:
+    def _dedup_sig(self, anchor: int, last, known, known_mask, pseed=None) -> tuple:
         """What a rollout from a ring-fixed anchor depends on: the anchor,
-        the inputs it starts from and pins, and the input-log window the
-        tree reads."""
+        the inputs it starts from and pins, the input-log window the tree
+        reads, and the predictor's seed."""
         return (anchor, np.asarray(last).tobytes(), known.tobytes(), known_mask.tobytes(),
-                self._history_fingerprint(anchor))
+                self._history_fingerprint(anchor),
+                b"" if pseed is None else pseed.fold_bytes())
 
     def _branch_tensor(self, last, known, known_mask, anchor: int) -> np.ndarray:
         """The next rollout's host branch tensor: the sampler's draw with
@@ -1015,7 +1053,13 @@ class SpeculativeRollbackRunner(RollbackRunner):
         vector payloads) to one candidate value from one frame on. The
         enumeration is (candidate rank, frame, player, field)-major over
         :meth:`_candidate_values`, so every slot gets its best candidate
-        before any slot gets its second."""
+        before any slot gets its second.
+
+        A bound predictor (``_predictor``, read with ``getattr`` so that
+        hosts borrowing this method opt in by setting it) replaces both
+        the periodic extrapolation, its trajectory becoming the base with
+        the known inputs pinned, and the candidate ranking, its first-step
+        logits ordering the universe; branch 0 stays the forward fill."""
         F, P, B = self.spec_frames, self.num_players, self.num_branches
         shape = self.input_spec.shape
         base = _forward_fill(last, known, known_mask)  # [F, P, *shape]
@@ -1023,14 +1067,33 @@ class SpeculativeRollbackRunner(RollbackRunner):
             return np.broadcast_to(base, (B, F, P) + shape).copy()
         if anchor is None:
             anchor = max(self._input_log, default=0) + 1
-        pred = self._extrapolate_base(base, known, known_mask, anchor)
+        seeded = None
+        predictor = getattr(self, "_predictor", None)
+        if predictor is not None:
+            memo = getattr(self, "_seed_memo", None)
+            if memo is not None and memo[0] == anchor:
+                seeded = memo[1]  # this tick's signature seed
+            else:
+                seeded = predictor.seed(self._input_log, anchor, F, P)
+        if seeded is not None:
+            knownf = np.asarray(known).reshape(F, P, -1)
+            trajf = seeded.traj.reshape(F, P, -1).astype(base.dtype, copy=True)
+            trajf = np.where(known_mask[:, :, None], knownf, trajf)
+            pred = trajf.reshape(base.shape)
+            if np.array_equal(pred, base):
+                pred = None
+        else:
+            pred = self._extrapolate_base(base, known, known_mask, anchor)
         eff_base = base if pred is None else pred
         out = np.broadcast_to(eff_base, (B, F, P) + shape).copy()
         out[0] = base
         start_b = 1
         if pred is not None and not np.array_equal(pred, base):
             start_b = 2  # out[1] is the unperturbed extrapolation
-        C, cvalid = self._candidate_values(last)  # [P, K, R]
+        if seeded is not None:
+            C, cvalid = seeded.cand, seeded.valid  # [P, K, R]
+        else:
+            C, cvalid = self._candidate_values(last)  # [P, K, R]
         n_field = C.shape[1]
         basef = eff_base.reshape(F, P, n_field)
         free = ~known_mask  # [F, P]

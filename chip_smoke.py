@@ -113,8 +113,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    10's lossy loopback (no chaos) on seeded held-key runs: both RUNNING, no
    ``DESYNC_DETECTED``, hits (full or partial) on each peer, and the
    confirmed checksum stream bitwise equal to the same run with
-   speculation off and to the same run on the CPU; on each peer the
-   checksum kernel ran once per serial save, once per restore guard and F
+   speculation off and to the same run on the CPU; on each peer the checksum kernel ran once per serial save, once per restore guard and F
    times per rollout dispatched. Per peer, with speculation on and off:
    ticks (mean, p99), recovery ticks (ticks that rolled back: p50, p99),
    hits, partial hits, misses, skipped dispatches, ``spec_host_dispatch``
@@ -167,10 +166,50 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``spec_host_dispatch``); the spectator's lag in frames; the busy share
    of one profiled render frame. Every phase prints its wall seconds.
 
-The kernel counters are set to 0 just before each SyncTest of phases 4, 5
-and 8, each P2P run of phases 10, 11 and 12 (in the leg's process) and
-each boids attestation of phase 11, and read just after (the P2P runs read them around each peer's
-update); launches made to compare a kernel with its plain version are not
+13. projectiles and neural_bots. The exact primitives of
+   ``ops/exact.py`` on the card against their cpu runs, bitwise:
+   ``int_matmul`` at neural_bots' shapes (512 bots, H = 32, 256 and 512,
+   batched over 32 branches) and the ranker's (396 and 32 deep), and
+   ``tanh_f32`` and ``sqrt_f32`` on 1 M float32 values with the edges (NaN
+   to NaN on both); what PyTorch's own integer products do on the card is
+   printed. The checksum kernel's three modes bitwise their plain versions
+   on a projectiles world after spawns and despawns and on a neural_bots
+   H = 512 world (its dict resource ``policy``: int8 and float32 leaves);
+   the batched save of 64 projectiles worlds and of 32 neural_bots H = 512
+   worlds into ``[B, 8]`` rings bitwise and timed beside its bound.
+   SyncTests at ``check_distance`` 7, cuda against cpu bitwise, the
+   checksum kernel once per save and guard and no force kernel:
+   projectiles (4 players, capacity 64, the live zoo's script with FIRE)
+   for 300 frames in dense and in grid mode, the two streams bitwise
+   equal (ids minted, live entities and scores printed; the grid is held
+   against the dense cpu run); neural_bots (512 bots, 2 players) for 300
+   frames at H = 32 and 60 at H = 256 and 512, their cpu runs a prefix
+   (``BOT_CPU_FRAMES``).
+   Then P2P over phase 10's lossy loopback: projectiles, 4 peers each
+   ``with_speculation(64)``, and neural_bots, 2 peers each
+   ``with_speculation(32)``, 8 frames, ``MODEL_SPEC_FRAMES`` frames, each
+   against speculation off and a shorter cpu run (``MODEL_CPU_FRAMES``,
+   at least ``TWIN_COMMON_FRAMES`` confirmed frames in common on each
+   peer): the attestation of every peer at
+   full coverage, no ``DESYNC_DETECTED``, a hit on every peer, the
+   confirmed streams bitwise equal, checksum launches = saves + guards +
+   8 x rollouts; per peer the speculation counters, ticks, recovery ticks
+   and one profiled render frame's busy share.
+
+14. The learned input predictor. ``BatchedRanker`` on the card bitwise
+   its cpu run and the host ``BoundPredictor`` rollout at S = 64 slots,
+   P = 2 and 8 and F = 8 and 12 on random windows with gaps, ``rank``
+   timed a call. Then a fifth leg of config 5 (native plane,
+   ``PYTHONHASHSEED=0``) with every session built
+   ``with_input_predictor("default")`` and peer 0 seeding its tree with
+   it: its confirmed streams equal phase 12's first leg's; peer 0's full /
+   partial / misses beside that leg's, ``predictor_rank`` ms and the
+   ticks printed.
+
+The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
+8 and 13, each P2P run of phases 10-14 (in the leg's process for 12 and
+14) and each boids attestation of phase 11, and read just after (the P2P
+runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
 the kernel table (JSON), the card's name and power limit, and the result
 (JSON).
@@ -836,10 +875,11 @@ def drive(app, session, session_type, frames: int):
 
 
 def box_app(device, inputs=None, players: int = 2, speculation: int = 0,
-            max_prediction: int = 8):
+            max_prediction: int = 8, predictor=None):
     """A box_game app; ``inputs`` is the input system (default: keys held
     for 20 frames in turn); ``speculation`` branches (0: none, else as many
-    frames as ``max_prediction``), with a metrics sink on the runner."""
+    frames as ``max_prediction``), with a metrics sink on the runner, and
+    ``predictor`` seeding its tree (None: off)."""
     from bevy_ggrs_tpu_torch.app import GGRSPlugin
     from bevy_ggrs_tpu_torch.models import box_game
     from bevy_ggrs_tpu_torch.utils.metrics import Metrics
@@ -866,7 +906,7 @@ def box_app(device, inputs=None, players: int = 2, speculation: int = 0,
         .with_world_capacity(16)
         .with_setup_system(setup)
         .with_device(device)
-        .with_speculation(speculation)
+        .with_speculation(speculation, predictor=predictor if speculation else None)
         .with_metrics(Metrics() if speculation else None)
         .build()
     )
@@ -1136,13 +1176,15 @@ class P2PRun:
     ``net`` the loopback's latency, jitter, loss and seed (``P2P_NET`` by
     default). Every peer, the spectator and (over UDP) every socket must
     be on the native data plane unless ``GGRS_NO_NATIVE=1`` selects the
-    Python one (:func:`check_plane`)."""
+    Python one (:func:`check_plane`). ``predictor`` configures every
+    session's input predictor (its weights' hash is the handshake's
+    digest)."""
 
     def __init__(self, make_app, device, players: int, seed: int, frames: int,
                  transport: str = "loopback", chaos: bool = False,
                  spectator: bool = False, inputs=None, net=None,
                  max_prediction: int = P2P_MAX_PREDICTION,
-                 input_delay: int = P2P_INPUT_DELAY):
+                 input_delay: int = P2P_INPUT_DELAY, predictor=None):
         from bevy_ggrs_tpu_torch.app import SessionType
         from bevy_ggrs_tpu_torch.chaos import ChaosSocket
         from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
@@ -1170,7 +1212,8 @@ class P2PRun:
             builder = (SessionBuilder(app.stage.runner.input_spec)
                        .with_num_players(players)
                        .with_max_prediction_window(max_prediction)
-                       .with_input_delay(input_delay))
+                       .with_input_delay(input_delay)
+                       .with_input_predictor(predictor))
             for h in range(players):
                 builder.add_player(PlayerType.local() if h == me
                                    else PlayerType.remote(addrs[h]), h)
@@ -1194,6 +1237,7 @@ class P2PRun:
             app = make_app(device, inputs)
             session = (SessionBuilder(app.stage.runner.input_spec)
                        .with_num_players(players)
+                       .with_input_predictor(predictor)
                        .start_spectator_session(addrs[0], self.net.socket(spec_addr),
                                                 clock=clock))
             check_plane("spectator", session, app.stage.runner)
@@ -1488,6 +1532,9 @@ def p2p_phase(kernels, force_kernels, ts, tck, tpw, box_frames: int = 600,
 # ---------------------------------------------------------------------------
 
 SPEC_BRANCHES = 64
+# A shorter cpu twin of a P2P run is held against the card's stream over
+# at least this many confirmed frames on each peer.
+TWIN_COMMON_FRAMES = 10
 SPEC_TIMED_BRANCHES = (64, 256)  # BASELINE configs 2 and "HL": 8 frames x 64 / 256
 
 
@@ -1599,42 +1646,12 @@ def batched_save_times(ts, tck) -> dict:
 
 
 def batched_save_time(ts, tck, B: int, depth: int, players: int, seed: int) -> dict:
-    """The batched save's device time (graph replay) of ``B`` box_game
-    worlds of ``players`` cubes into ``[B, depth]`` rings, beside its least
-    time: B worlds read once and written once, with their digests and
-    frames, over the memory rate, or the hash's integer operations at the
-    int32 rate."""
+    """The batched save of ``B`` box_game worlds of ``players`` cubes into
+    ``[B, depth]`` rings, timed beside B real single-world saves captured
+    in one graph (:func:`time_batched_save`)."""
     worlds = box_branch_worlds(ts, B, "cuda", seed=seed, players=players)
-    state = branch_worlds(ts, worlds)
-    rings = ts.branch_rings(worlds[0], B, depth)
-    lay = tck.layout(state)
-    world_bytes = sum(p.row_bytes for p in lay.parts)
-    words = sum(p.words for p in lay.parts if p.role not in (tck.ALIVE, tck.RESOURCE))
-    ops = (int(state.alive.sum()) * (words * CHECKSUM_OPS_PER_WORD + FMIX_OPS)
-           + B * lay.resource_words * (CHECKSUM_OPS_PER_WORD + FMIX_OPS))
-    moved = B * (2 * world_bytes + 2 * 16 + 4)
-    t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_I32_PER_S * 1e3
-    plain = clone_ring(ts, rings)
-    singles = [ts.ring_init(w, depth) for w in worlds]
-
-    def serial():  # the B single-world saves the batched save replaces
-        for ring, world in zip(singles, worlds):
-            ts.ring_save(ring, world, 3)
-
-    m = {
-        "ms": graph_ms(lambda: ts.ring_save(rings, state, 3)),
-        "call_ms": cuda_ms(lambda: ts.ring_save(rings, state, 3)),
-        "plain_ms": cuda_ms(lambda: tck.save_plain(plain, state, 3), iters=20),
-        "serial_ms": graph_ms(serial, iters=4),
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
-        else "operations", "bytes": moved, "ops": ops, "world_bytes": world_bytes,
-        "depth": depth, "players": players,
-    }
-    print(f"batched save box_game {players} players B={B} depth {depth} ({world_bytes} "
-          f"bytes a world): device {m['ms']:.6f} ms (graph replay), per call with host work "
-          f"{m['call_ms']:.6f} ms, plain {m['plain_ms']:.6f} ms a call; {B} single-world "
-          f"saves (one graph of {B} launches) {m['serial_ms']:.6f} ms of device time; bound "
-          f"{m['bound_ms']:.7f} ms ({m['bound_by']}: {moved} bytes, {ops} ops)")
+    m = time_batched_save(ts, tck, f"box_game {players} players", worlds, depth, serial=True)
+    m["players"] = players
     return m
 
 
@@ -1710,8 +1727,10 @@ def spec_peer_numbers(run: P2PRun) -> list:
 
 # The speculating tick's host pieces (metrics timers): the branch tree, the
 # known inputs read from the session (none when the builder reads the
-# native queues in-process) and the branch match.
-SPEC_PIECES = ("structured_bits_build", "known_inputs_query", "match_branch")
+# native queues in-process), the branch match and the predictor's seed
+# (no call without a predictor).
+SPEC_PIECES = ("structured_bits_build", "known_inputs_query", "match_branch",
+               "predictor_rank")
 
 
 def series_stats(metrics, name: str) -> dict:
@@ -1741,18 +1760,36 @@ def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHE
     """Phase 11's P2P runs: box_game, 2 peers speculating with
     ``branches`` branches, against the same run with speculation off and
     (on the card) the same run on the CPU."""
-    on_card = device == "cuda"
-    card = smi() if on_card else "cpu"
 
     def box(spec):
         return lambda dev, inputs: box_app(dev, inputs, players=2, speculation=spec)
 
+    return spec_p2p(kernels, ts, tck, "spec box_game", box, 2, frames, branches,
+                    held_key_runs, device)
+
+
+def spec_p2p(kernels, ts, tck, label: str, make, players: int, frames: int, branches: int,
+             inputs, device: str = "cuda", attestation: bool = False,
+             cpu_frames: int = 0) -> dict:
+    """``players`` peers, each speculating with ``branches`` branches
+    (``make(spec)`` gives the run's ``make_app``), over the lossy loopback
+    on the input system ``inputs``, against the same run with speculation
+    off and (on the card) the same run on the CPU, for ``cpu_frames``
+    frames when given (its stream is compared over the frames it
+    confirmed, at least ``TWIN_COMMON_FRAMES`` of them): no desync, a
+    hit on each peer, the confirmed streams bitwise equal, and on the
+    card the checksum kernel F times a rollout besides the serial saves
+    and guards. With ``attestation``, every
+    peer's warmup attestation covered every branch of both tensors."""
+    on_card = device == "cuda"
+    card = smi() if on_card else "cpu"
+
     def play(spec, dev, n):
         if on_card and dev == "cuda":
             reset_counts(kernels)
-        run = P2PRun(box(spec), dev, 2, seed=5, frames=n, inputs=held_key_runs)
+        run = P2PRun(make(spec), dev, players, seed=5, frames=n, inputs=inputs)
         run.run(kernels, ts, tck, max_seconds=300.0)
-        return run, run.summary(f"spec box_game 2 peers B={spec} on {dev}")
+        return run, run.summary(f"{label} {players} peers B={spec} on {dev}")
 
     results = {}
     on_run, on = play(branches, device, frames)
@@ -1760,29 +1797,38 @@ def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHE
     spec_frames = on_run.peers[0]["app"].stage.runner.spec_frames
     for i, peer in enumerate(on_run.peers):
         runner = peer["app"].stage.runner
-        check(runner.speculation_enabled, f"spec peer {i}: speculation disabled")
+        check(runner.speculation_enabled, f"{label} peer {i}: speculation disabled")
         check(runner.spec_hits + runner.spec_partial_hits > 0,
-              f"spec peer {i}: no speculative hit in {runner.rollbacks_total} rollbacks")
+              f"{label} peer {i}: no speculative hit in {runner.rollbacks_total} rollbacks")
+        att = runner.attestation
+        check(not attestation or (att.ok and att.scanned_branches == branches
+                                  and att.real_checked == 2 * branches),
+              f"{label} peer {i}: attestation {att}")
     streams = {"on": [on_run.confirmed_stream(p) for p in on_run.peers],
                "off": [off_run.confirmed_stream(p) for p in off_run.peers]}
     others = [("off", off_run)]
     if on_card:
-        cpu_run, _ = play(branches, "cpu", frames)
+        t0 = time.perf_counter()
+        cpu_run, _ = play(branches, "cpu", cpu_frames or frames)
         streams["cpu"] = [cpu_run.confirmed_stream(p) for p in cpu_run.peers]
         others.append(("cpu", cpu_run))
+        print(f"{label}: the cpu run of {cpu_run.frames} frames took "
+              f"{time.perf_counter() - t0:.1f} s")
     for name, other in others:
         need = min(30, min(frames, other.frames) // 20)  # exchanges: one every 8 frames
+        if name == "cpu":
+            need = max(need, TWIN_COMMON_FRAMES)
         for i, (a, b) in enumerate(zip(streams["on"], streams[name])):
             common = sorted(set(a) & set(b))
-            check(len(common) >= need, f"spec peer {i}: {len(common)} frames in common "
+            check(len(common) >= need, f"{label} peer {i}: {len(common)} frames in common "
                                        f"with the {name} run, fewer than {need}")
             check(all(a[f] == b[f] for f in common),
-                  f"spec peer {i}: the confirmed stream differs from the {name} run's")
-            print(f"spec box_game peer {i}: speculating stream on {device} {len(a)} frames, "
+                  f"{label} peer {i}: the confirmed stream differs from the {name} run's")
+            print(f"{label} peer {i}: speculating stream on {device} {len(a)} frames, "
                   f"{name} run {len(b)} frames, {len(common)} in common, bitwise equal")
     if on_card:
-        check_spec_launches("spec box_game", on_run, spec_frames)
-        check_p2p_launches("spec off box_game", off)
+        check_spec_launches(label, on_run, spec_frames)
+        check_p2p_launches(f"{label} off", off)
     # Read every number before the profiled render frame, which steps the
     # runs once more and would add its launches, counts and tick.
     results["on"] = {"peers": spec_peer_numbers(on_run),
@@ -1790,14 +1836,20 @@ def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHE
                      "counts": [dict(p["counts"]) for p in on_run.peers],
                      "confirmed_checksums": on["confirmed_checksums"], "seconds": on["seconds"]}
     results["off"] = {"peers": spec_peer_numbers(off_run),
+                      "launches": [dict(p["launches"]) for p in off_run.peers],
                       "confirmed_checksums": off["confirmed_checksums"],
                       "seconds": off["seconds"]}
+    if attestation:
+        att = on_run.peers[0]["app"].stage.runner.attestation
+        results["on"]["attestation"] = {"ok": att.ok, "real_checked": att.real_checked,
+                                        "scanned_branches": att.scanned_branches,
+                                        "frames": att.frames}
     for key, run in (("on", on_run), ("off", off_run)):
         results[key]["busy"] = p2p_busy(run, kernels, ts, tck, iters=1) if on_card else None
     for key in ("on", "off"):
         for i, peer in enumerate(results[key]["peers"]):
-            print(f"spec box_game speculation {key} peer {i}: " + json.dumps(peer) + f"; {card}")
-        print(f"spec box_game speculation {key}: busy " + json.dumps(results[key]["busy"])
+            print(f"{label} speculation {key} peer {i}: " + json.dumps(peer) + f"; {card}")
+        print(f"{label} speculation {key}: busy " + json.dumps(results[key]["busy"])
               + f", {results[key]['confirmed_checksums']} confirmed frames, "
               f"{results[key]['seconds']:.1f} s; {card}")
     return results
@@ -2120,12 +2172,12 @@ def boids_spec_phase(kernels, force_kernels, ts, tck, tpw, frames: int = 300,
 # max_prediction 12, no input delay, peer 0 speculating 1,024 branches x 12
 # frames, over a loopback of 2 frames' latency, 1 frame's jitter and 2 %
 # loss from seed 7. The JAX bench plays 1,800 frames; the card's run is cut
-# to CONFIG5_FRAMES a leg: phase 12 runs four legs, each paying its own
-# attestation at 1,024 x 12.
+# to CONFIG5_FRAMES a leg: phase 12 runs four legs and phase 14 a fifth,
+# each paying its own attestation at 1,024 x 12 (about 30 s).
 CONFIG5_PLAYERS = 8
 CONFIG5_MAX_PREDICTION = 12
 CONFIG5_BRANCHES = 1024
-CONFIG5_FRAMES = 400
+CONFIG5_FRAMES = 200
 CONFIG5_NET = {"latency": 2 / 60, "jitter": 1 / 60, "loss": 0.02, "seed": 7}
 # Both legs run in child processes with this string-hash seed: the
 # sessions' endpoint order, and with it their timing, follows str hashing.
@@ -2144,18 +2196,20 @@ def config5_inputs(seed, frames, players):
     return lambda handle, app: np.uint8(keys[(app.session.current_frame // 3 + handle) % 4])
 
 
-def config5_leg(kernels, ts, tck, device, frames: int, branches: int) -> dict:
+def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
+                predictor=None) -> dict:
     """One run of config 5 in this process, on the data plane the
     environment selects (every peer, the spectator and peer 0's branch
     builder on it: :func:`check_plane`). Returns what the two legs compare
     (peer 0's speculation counters, every peer's confirmed checksum stream,
-    the spectator's) and print."""
+    the spectator's) and print. ``predictor`` (phase 14): every session
+    advertises its digest and peer 0's tree is seeded by it."""
     from bevy_ggrs_tpu_torch.native import core as native_core
 
     on_card = device == "cuda"
     card = smi() if on_card else "cpu"
     plane = "python" if native_core.switched_off() else "native"
-    label = f"config5 {plane}"
+    label = f"config5 {plane}" + (f" predictor {predictor}" if predictor else "")
     if on_card:
         reset_counts(kernels)
     builds = []
@@ -2164,13 +2218,13 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int) -> dict:
         spec = branches if not builds else 0
         t0 = time.perf_counter()
         app = box_app(dev, inputs, players=CONFIG5_PLAYERS, speculation=spec,
-                      max_prediction=CONFIG5_MAX_PREDICTION)
+                      max_prediction=CONFIG5_MAX_PREDICTION, predictor=predictor)
         builds.append(time.perf_counter() - t0)
         return app
 
     run = P2PRun(make_app, device, CONFIG5_PLAYERS, seed=7, frames=frames, spectator=True,
                  inputs=config5_inputs, net=CONFIG5_NET,
-                 max_prediction=CONFIG5_MAX_PREDICTION, input_delay=0)
+                 max_prediction=CONFIG5_MAX_PREDICTION, input_delay=0, predictor=predictor)
     run.run(kernels, ts, tck, max_seconds=CONFIG5_LEG_SECONDS - 60)
     summary = run.summary(label)
     runner0 = run.peers[0]["app"].stage.runner
@@ -2179,6 +2233,8 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int) -> dict:
           and att.scanned_branches == branches and att.real_checked == 2 * branches,
           f"{label}: attestation {att}")
     check(runner0.spec_frames == CONFIG5_MAX_PREDICTION, f"{label}: {runner0.spec_frames} frames")
+    check((runner0._predictor is not None) == bool(predictor),
+          f"{label}: predictor {runner0._predictor}")
     check(runner0.spec_hits + runner0.spec_partial_hits > 0,
           f"{label}: no speculative hit in {runner0.rollbacks_total} rollbacks")
     if on_card:
@@ -2190,6 +2246,7 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int) -> dict:
                      launches=dict(peer["launches"]), counts=dict(peer["counts"]))
     out = {
         "plane": plane,
+        "predictor": predictor,
         "counters": {k: getattr(runner0, k) for k in CONFIG5_COUNTERS},
         "streams": [{str(f): cs for f, cs in run.confirmed_stream(p).items()}
                     for p in run.peers],
@@ -2214,9 +2271,11 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int) -> dict:
 
 
 def config5_child(argv) -> int:
-    """``chip_smoke.py --config5 DEVICE FRAMES BRANCHES``: one leg of phase
-    12 (:func:`config5_leg`), its result the last line of output."""
+    """``chip_smoke.py --config5 DEVICE FRAMES BRANCHES [PREDICTOR]``: one
+    leg of phase 12 or 14 (:func:`config5_leg`), its result the last line
+    of output."""
     device, frames, branches = argv[0], int(argv[1]), int(argv[2])
+    predictor = argv[3] if len(argv) > 3 else None
     if device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2228,22 +2287,23 @@ def config5_child(argv) -> int:
 
     kernels = (tck.world_checksum, tpw.pairwise_force_rows, tpw.pairwise_force_rows_mxu2,
                tpw.pairwise_force_square_mxu_tri, tcg.cell_slot_forces)
-    result = config5_leg(kernels, ts, tck, device, frames, branches)
+    result = config5_leg(kernels, ts, tck, device, frames, branches, predictor)
     print("CONFIG5 " + json.dumps(result), flush=True)
     return 0
 
 
-def config5_run_leg(plane: str, device, frames: int, branches: int) -> dict:
+def config5_run_leg(plane: str, device, frames: int, branches: int,
+                    predictor=None) -> dict:
     """Run one leg in a child process: ``PYTHONHASHSEED`` fixed, and
     ``GGRS_NO_NATIVE=1`` for the Python leg (the switch a user sets). The
     child's lines are printed here."""
     env = {k: v for k, v in os.environ.items()
-           if k not in ("GGRS_NO_NATIVE", "BEVY_GGRS_TPU_NATIVE")}
+           if k not in ("GGRS_NO_NATIVE", "BEVY_GGRS_TPU_NATIVE", "GGRS_PREDICTOR")}
     env["PYTHONHASHSEED"] = CONFIG5_HASH_SEED
     if plane == "python":
         env["GGRS_NO_NATIVE"] = "1"
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--config5", str(device),
-           str(frames), str(branches)]
+           str(frames), str(branches)] + ([predictor] if predictor else [])
     t0 = time.perf_counter()
     done = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
                           timeout=CONFIG5_LEG_SECONDS)
@@ -2252,7 +2312,8 @@ def config5_run_leg(plane: str, device, frames: int, branches: int) -> dict:
         if not line.startswith("CONFIG5 "):
             print(line)
     check(done.returncode == 0 and lines and lines[-1].startswith("CONFIG5 "),
-          f"config5 {plane} leg: rc {done.returncode}: {done.stderr[-4000:]}")
+          f"config5 {plane} leg (predictor {predictor}): rc {done.returncode}: "
+          f"{done.stderr[-4000:]}")
     result = json.loads(lines[-1][len("CONFIG5 "):])
     check(result["plane"] == plane, f"config5: the {plane} leg ran on {result['plane']}")
     result["process_seconds"] = time.perf_counter() - t0
@@ -2313,6 +2374,434 @@ def config5_phase(kernels, ts, tck, frames: int = CONFIG5_FRAMES,
         }
         print(f"config5 {plane} legs: " + json.dumps(summary))
     out["legs"] = legs
+    return out
+
+# ---------------------------------------------------------------------------
+# Phase 13: projectiles and neural_bots
+# ---------------------------------------------------------------------------
+
+# The JAX bench's live-zoo scripts: player h presses keys[(frame // 3 + h) % 4].
+PROJECTILE_KEYS = (1, 16, 8, 0)  # UP, FIRE, RIGHT, none
+BOT_KEYS = (1, 2, 4, 0)
+PROJECTILE_PLAYERS, PROJECTILE_CAP, PROJECTILE_BRANCHES = 4, 64, 64
+BOTS, BOT_PLAYERS, BOT_BRANCHES = 512, 2, 32
+BOT_HIDDEN = (32, 256, 512)
+# The P2P runs play 400 frames on the card (cut from 600 to fit the
+# script's time), and their cpu twins fewer (the CPU steps a
+# 64-branch projectiles or a 32-branch, 512-bot neural_bots rollout in
+# hundreds of ms): 96 frames, about 12 checksum exchanges, so that
+# TWIN_COMMON_FRAMES of them are confirmed on both.
+MODEL_SPEC_FRAMES = 400
+MODEL_CPU_FRAMES = (96, 96)
+# The cpu twins of the neural_bots SyncTests play a prefix of the card's
+# frames: 150 of 300 at H = 32, 20 of 60 at H = 256 and 512 (a [512, H]
+# tanh_f32 step takes tens of ms on the CPU).
+BOT_CPU_FRAMES = (150, 20)
+# 1 M float32 values for tanh_f32 and sqrt_f32, edges included.
+EXACT_VALUES = 1 << 20
+
+
+def key_script(keys):
+    """An ``inputs(seed, frames, players)`` factory for :class:`P2PRun` and
+    an input system: ``keys[(frame // 3 + handle) % len(keys)]``."""
+    def inputs(seed=0, frames=0, players=0):
+        return lambda handle, app: np.uint8(
+            keys[(app.session.current_frame // 3 + handle) % len(keys)])
+    return inputs
+
+
+def model_app(device, model: str, inputs=None, speculation: int = 0, mode=None,
+              hidden: int = 32, bots: int = BOTS, predictor=None):
+    """A projectiles app (4 players, capacity 64, the hit test in ``mode``)
+    or a neural_bots app (``bots`` bots of 2 players, hidden width
+    ``hidden``), registered through ``GGRSPlugin`` from the model's
+    registry; ``speculation`` branches (0: none) with a metrics sink."""
+    from bevy_ggrs_tpu_torch.app import GGRSPlugin
+    from bevy_ggrs_tpu_torch.models import neural_bots, projectiles
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    if model == "projectiles":
+        players, keys, capacity = PROJECTILE_PLAYERS, PROJECTILE_KEYS, PROJECTILE_CAP
+        registry, schedule = projectiles.make_registry(), projectiles.make_schedule(mode)
+        spec = projectiles.INPUT_SPEC
+        setup = lambda world, app: projectiles.spawn_turrets(world, players)  # noqa: E731
+    else:
+        players, keys, capacity = BOT_PLAYERS, BOT_KEYS, bots
+        registry, schedule = neural_bots.make_registry(hidden), neural_bots.make_schedule()
+        spec = neural_bots.INPUT_SPEC
+        setup = lambda world, app: neural_bots.spawn_bots(world, bots, players)  # noqa: E731
+    plugin = GGRSPlugin(spec).with_input_system(inputs or key_script(keys)())
+    for d in registry.components.values():
+        plugin.register_rollback_component(d.name, shape=d.shape, dtype=d.dtype,
+                                           default=d.default)
+    for d in registry.resources.values():
+        plugin.register_rollback_resource(d.name, d.initial)
+    return (plugin.with_rollback_schedule(schedule)
+            .with_num_players(players)
+            .with_max_prediction_window(P2P_MAX_PREDICTION)
+            .with_world_capacity(capacity)
+            .with_setup_system(setup)
+            .with_device(device)
+            .with_speculation(speculation, predictor=predictor if speculation else None)
+            .with_metrics(Metrics() if speculation else None)
+            .build())
+
+
+def exact_inputs(n: int) -> np.ndarray:
+    """``n`` float32 values for the exact primitives: uniform over +-10,
+    small normals, values around the tanh's 0.0004 cut, any bit pattern,
+    and the edges (+-0, +-inf, NaN, the clamp, past 8)."""
+    rng = np.random.RandomState(13)
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 8.0, -8.0, 9.0, 1e30,
+                      7.99881172180175781, 0.0004, -0.0004, np.float32(0.0004) * 1.0000001,
+                      1e-8, 1e-12], np.float32)
+    k = (n - edges.size) // 4
+    parts = [rng.uniform(-10, 10, k), rng.standard_normal(k) * 0.01,
+             rng.uniform(-0.001, 0.001, k),
+             rng.randint(0, 2 ** 32, n - edges.size - 3 * k, dtype=np.uint64)]
+    parts = [p.astype(np.float32) for p in parts[:3]] + [
+        parts[3].astype(np.uint32).view(np.float32)]
+    return np.concatenate(parts + [edges])
+
+
+def check_exact(tx) -> dict:
+    """The exact primitives on the card against their cpu runs, bitwise:
+    ``int_matmul`` at neural_bots' and the ranker's shapes, batched too,
+    and ``tanh_f32`` and ``sqrt_f32`` on :data:`EXACT_VALUES` values (NaN
+    in gives NaN out on both, compared by ``isnan``). Also what PyTorch's
+    own integer products do on the card."""
+    rng = np.random.RandomState(3)
+    cases = []
+    for h in BOT_HIDDEN:
+        cases += [((BOTS, 8), (8, h)), ((BOTS, h), (h, 4)), ((BOT_BRANCHES, BOTS, 8),
+                                                             (BOT_BRANCHES, 8, h))]
+    cases += [((64, 8, 396), (396, 32)), ((64, 8, 32), (32, 32))]  # the ranker, S = 64, P = 8
+    for sa, sb in cases:
+        lo = 0 if sa[-1] == 396 else -127  # the ranker's features are 0/1
+        a = torch.from_numpy(rng.randint(lo, 128 if lo else 2, sa).astype(np.int8))
+        b = torch.from_numpy(rng.randint(-127, 128, sb).astype(np.int8))
+        got = tx.int_matmul(a.cuda(), b.cuda())
+        want = tx.int_matmul(a, b)
+        ref = np.matmul(a.numpy().astype(np.int64), b.numpy().astype(np.int64))
+        check(got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+              and np.array_equal(want.numpy(), ref), f"int_matmul {sa} x {sb} on cuda")
+    print(f"int_matmul: {len(cases)} shapes bitwise the cpu int32 product and numpy's int64 "
+          f"one: " + ", ".join(f"{sa}x{sb}" for sa, sb in cases))
+    library = {}
+    a8 = torch.ones((32, 8), dtype=torch.int8, device="cuda")
+    b8 = torch.ones((8, 4), dtype=torch.int8, device="cuda")
+    for name, fn in (("matmul int8", lambda: torch.matmul(a8, b8)),
+                     ("matmul int32", lambda: torch.matmul(a8.int(), b8.int())),
+                     ("_int_mm n=4", lambda: torch._int_mm(a8, b8)),
+                     ("_int_mm 32x8x8", lambda: torch._int_mm(a8, a8.t().contiguous()[:, :8]))):
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            library[name] = f"ran: {out.dtype} {tuple(out.shape)}"
+        except Exception as e:  # noqa: BLE001 - recorded, not a failure
+            library[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    print("integer products in PyTorch on the card: " + json.dumps(library))
+    x = torch.from_numpy(exact_inputs(EXACT_VALUES))
+    out = {}
+    for name, fn in (("tanh_f32", tx.tanh_f32), ("sqrt_f32", tx.sqrt_f32)):
+        arg = x if name == "tanh_f32" else x.abs()
+        got, want = fn(arg.cuda()).cpu(), fn(arg)
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan), f"{name}: NaN differs on cuda")
+        check(torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+              f"{name}: cuda differs from cpu in "
+              f"{int((got[~nan].view(torch.int32) != want[~nan].view(torch.int32)).sum())} values")
+        out[name] = {"values": int(x.numel()), "nan": int(nan.sum()),
+                     "ms": cuda_ms(lambda: fn(arg.cuda()), iters=20)}
+    print(f"tanh_f32, sqrt_f32: {x.numel()} float32 values bitwise equal on cuda and cpu, "
+          f"NaN to NaN on both: " + json.dumps(out))
+    out["library"] = library
+    return out
+
+
+def model_worlds(ts, model: str, n: int, seed: int, hidden: int = 32, frames: int = 100):
+    """``n`` worlds of a model on the card, each the state after ``frames``
+    steps of its own seeded random inputs on the CPU: projectiles worlds
+    after spawns and despawns (FIRE pressed), neural_bots worlds of
+    :data:`BOTS` bots at hidden width ``hidden``."""
+    from bevy_ggrs_tpu_torch.models import neural_bots, projectiles
+    from bevy_ggrs_tpu_torch.schedule import PlayerInputs
+
+    if model == "projectiles":
+        world = projectiles.make_world(PROJECTILE_PLAYERS, PROJECTILE_CAP, device="cpu")
+        schedule, reg, values = projectiles.make_schedule(), projectiles.make_registry(), 32
+    else:
+        world = neural_bots.make_world(BOTS, BOT_PLAYERS, hidden=hidden, device="cpu")
+        schedule, reg, values = neural_bots.make_schedule(), neural_bots.make_registry(hidden), 16
+    start = world.commit()
+    players = PROJECTILE_PLAYERS if model == "projectiles" else BOT_PLAYERS
+    out = []
+    for k in range(n):
+        rng = np.random.RandomState([seed, k])
+        state = start
+        for _ in range(frames):
+            bits = torch.from_numpy(rng.randint(0, values, players).astype(np.uint8))
+            state = schedule(state, PlayerInputs(bits, torch.zeros(players, dtype=torch.int32)))
+        out.append(ts.from_host(reg, ts.to_host(state), device="cuda"))
+    return out
+
+
+def check_model_checksum(ts, tck, integrity, label: str, state) -> None:
+    """The checksum kernel's three modes against their plain versions on
+    one world of a model, bitwise."""
+    check(torch.equal(tck.checksum(state), tck.checksum_plain(state)),
+          f"{label}: checksum differs from the plain version")
+    ring, plain = ts.ring_init(state, 4), ts.ring_init(state, 4)
+    for frame in (0, 1, 5):
+        _, lanes = ts.ring_save(ring, state, frame)
+        want = tck.save_plain(plain, state, frame)
+        check(torch.equal(lanes, want), f"{label}: save lanes at frame {frame}")
+    check(torch.equal(ring.frames, plain.frames) and torch.equal(ring.checksums, plain.checksums)
+          and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, ring.states),
+                                                   world_leaves(ts, plain.states))),
+          f"{label}: the saved ring differs from the plain version's")
+    check(int(integrity.verify_row(ring, 5)) == int(tck.guard_plain(ring, 5)[0]) == 1,
+          f"{label}: the guard")
+    lay = tck.layout(state)
+    print(f"{label}: checksum, save and guard bitwise their plain versions "
+          f"({len(lay.parts)} parts, {lay.resource_words} resource words, "
+          f"{int(state.alive.sum())} live of {state.capacity})")
+
+
+def time_batched_save(ts, tck, label: str, worlds, depth: int, serial: bool = False) -> dict:
+    """The batched save's device time (graph replay) of ``worlds`` into
+    ``[B, depth]`` rings, beside its least time: B worlds read once and
+    written once, with their digests and frames, over the memory rate, or
+    the hash's integer operations at the int32 rate. With ``serial``, also
+    the B single-world saves it replaces, captured in one graph."""
+    B = len(worlds)
+    state = branch_worlds(ts, worlds)
+    rings = ts.branch_rings(worlds[0], B, depth)
+    lay = tck.layout(state)
+    world_bytes = sum(p.row_bytes for p in lay.parts)
+    words = sum(p.words for p in lay.parts if p.role not in (tck.ALIVE, tck.RESOURCE))
+    ops = (int(state.alive.sum()) * (words * CHECKSUM_OPS_PER_WORD + FMIX_OPS)
+           + B * lay.resource_words * (CHECKSUM_OPS_PER_WORD + FMIX_OPS))
+    moved = B * (2 * world_bytes + 2 * 16 + 4)
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_I32_PER_S * 1e3
+    plain = clone_ring(ts, rings)
+    m = {
+        "ms": graph_ms(lambda: ts.ring_save(rings, state, 3)),
+        "call_ms": cuda_ms(lambda: ts.ring_save(rings, state, 3)),
+        "plain_ms": cuda_ms(lambda: tck.save_plain(plain, state, 3), iters=20),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+        else "operations", "bytes": moved, "ops": ops, "world_bytes": world_bytes,
+        "depth": depth, "branches": B,
+    }
+    line = ""
+    if serial:
+        singles = [ts.ring_init(w, depth) for w in worlds]
+
+        def saves():  # the B single-world saves the batched save replaces
+            for ring, world in zip(singles, worlds):
+                ts.ring_save(ring, world, 3)
+
+        m["serial_ms"] = graph_ms(saves, iters=4)
+        line = (f"; {B} single-world saves (one graph of {B} launches) "
+                f"{m['serial_ms']:.6f} ms of device time")
+    print(f"batched save {label} B={B} depth {depth} ({world_bytes} bytes a world): device "
+          f"{m['ms']:.6f} ms (graph replay), per call with host work {m['call_ms']:.6f} ms, "
+          f"plain {m['plain_ms']:.6f} ms a call{line}; bound {m['bound_ms']:.7f} ms "
+          f"({m['bound_by']}: {moved} bytes, {ops} ops)")
+    return m
+
+
+def model_synctest(kernels, ts, tck, label: str, make, frames: int, cpu_frames=None,
+                   cpu_stream=None) -> dict:
+    """A SyncTest of ``make(device)`` at ``check_distance`` 7 on the card:
+    no mismatch, the checksum kernel once per save and guard, and its
+    stream bitwise the cpu's. The cpu plays ``cpu_frames`` (default
+    ``frames``) and its stream, a prefix of a longer run's, is compared
+    over its length; ``cpu_stream`` (a run known to give the same stream)
+    stands in for a cpu run."""
+    from bevy_ggrs_tpu_torch.app import SessionType
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+
+    out = {}
+    runs = [("cuda", frames)] + ([] if cpu_stream else [("cpu", cpu_frames or frames)])
+    for dev, n in runs:
+        t0 = time.perf_counter()
+        app = make(dev)
+        spec = app.stage.runner.input_spec
+        players = app.stage.runner.num_players
+        if dev == "cuda":
+            reset_counts(kernels)
+        log, ticks = drive(app, SyncTestSession(players, spec, check_distance=7),
+                           SessionType.SYNC_TEST, n)
+        if dev == "cuda":
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            words = check_checksum_launches(label, tck, launches, log, app.stage.runner)
+            check(all(v == 0 for k, v in launches.items() if k != "world_checksum"),
+                  f"{label}: a force kernel ran: {launches}")
+        out[dev] = {"app": app, "log": log, "ticks": ticks,
+                    "seconds": time.perf_counter() - t0}
+    out["stream"] = out["cuda"]["log"]["checksums"]
+    out["cpu_stream"] = cpu_stream or out["cpu"]["log"]["checksums"]
+    check(len(out["cpu_stream"]) > 0
+          and out["stream"][:len(out["cpu_stream"])] == out["cpu_stream"],
+          f"{label}: the checksum stream on cuda differs from the cpu's")
+    out["launches"] = launches
+    cpu = (f"{out['cpu']['seconds']:.1f} s on the cpu ({cpu_frames or frames} frames)"
+           if "cpu" in out else "the cpu stream given")
+    print(f"{label}: {frames} frames, {out['cuda']['log']['saves']} saves, "
+          f"{len(out['stream'])} checksums, the first {len(out['cpu_stream'])} bitwise the "
+          f"cpu's, {words}, ticks {json.dumps(tick_stats(out['cuda']['ticks']))}; "
+          f"{out['cuda']['seconds']:.1f} s on cuda, {cpu}")
+    return out
+
+
+def models_phase(kernels, ts, tck, integrity, device: str = "cuda", sync_frames: int = 300,
+                 wide_frames: int = 60, spec_frames: int = MODEL_SPEC_FRAMES,
+                 bots: int = BOTS, branches=(PROJECTILE_BRANCHES, BOT_BRANCHES)) -> dict:
+    """Phase 13 (on the card: the exact primitives, the checksum and the
+    batched save on both models' worlds, and the SyncTests, first). Then
+    the P2P runs, ``device="cpu"`` runs them alone at a small size: the
+    projectiles and neural_bots peers speculating, against speculation off
+    and (on the card) the cpu."""
+    from bevy_ggrs_tpu_torch.ops import exact as tx
+    from bevy_ggrs_tpu_torch.state import DEVICE_ID_BASE
+
+    on_card = device == "cuda"
+    out = {}
+    t0 = time.perf_counter()
+    if on_card:
+        out["exact"] = check_exact(tx)
+        proj = model_worlds(ts, "projectiles", PROJECTILE_BRANCHES, seed=13)
+        bots512 = model_worlds(ts, "neural_bots", BOT_BRANCHES, seed=14, hidden=512, frames=4)
+        check_model_checksum(ts, tck, integrity, "projectiles after spawns and despawns",
+                             proj[0])
+        check_model_checksum(ts, tck, integrity, "neural_bots H=512", bots512[0])
+        saves = {}
+        for label, worlds in (("projectiles", proj), ("neural_bots H=512", bots512)):
+            check_batched_save_case(ts, tck, label, len(worlds), worlds, P2P_MAX_PREDICTION, True)
+            saves[label] = time_batched_save(ts, tck, label, worlds, P2P_MAX_PREDICTION)
+        out["batched_save"] = saves
+        del proj, bots512
+        print(f"models: exact primitives, checksums and batched saves "
+              f"{time.perf_counter() - t0:.1f} s")
+        sync = {}
+        # Dense and grid give one stream; the grid's cpu run (the plain
+        # per-cell path, minutes on the CPU) is the dense cpu run's stream.
+        for mode in ("dense", "grid"):
+            sync[f"projectiles_{mode}"] = model_synctest(
+                kernels, ts, tck, f"projectiles {mode}",
+                lambda dev, mode=mode: model_app(dev, "projectiles", mode=mode), sync_frames,
+                cpu_stream=sync["projectiles_dense"]["cpu_stream"] if mode == "grid" else None)
+        check(sync["projectiles_dense"]["stream"] == sync["projectiles_grid"]["stream"],
+              "projectiles: the dense stream differs from the grid stream")
+        world = sync["projectiles_dense"]["cuda"]["app"].world()
+        res = world["resources"]
+        minted = int(res["next_rollback_id"]) - DEVICE_ID_BASE
+        check(minted > 0 and int(res["score"].sum()) > 0, "projectiles: no spawn or no hit")
+        print(f"projectiles: dense stream bitwise the grid stream; ids minted {minted}, live "
+              f"entities {int(world['alive'].sum())}, scores {res['score'].tolist()}")
+        for h in BOT_HIDDEN:
+            sync[f"neural_bots_H{h}"] = model_synctest(
+                kernels, ts, tck, f"neural_bots {bots} H={h}",
+                lambda dev, h=h: model_app(dev, "neural_bots", hidden=h, bots=bots),
+                sync_frames if h == BOT_HIDDEN[0] else wide_frames,
+                cpu_frames=BOT_CPU_FRAMES[0] if h == BOT_HIDDEN[0] else BOT_CPU_FRAMES[1])
+            pos = sync[f"neural_bots_H{h}"]["cuda"]["app"].world()["components"]["position"]
+            check(pos.shape == (bots, 2) and np.isfinite(pos).all(), f"neural_bots H={h}")
+        out["sync"] = {k: {"launches": v["launches"], "ticks": tick_stats(v["cuda"]["ticks"]),
+                           "saves": v["cuda"]["log"]["saves"]} for k, v in sync.items()}
+        del sync
+
+    def projectiles_make(spec):
+        return lambda dev, inputs: model_app(dev, "projectiles", inputs, speculation=spec)
+
+    def bots_make(spec):
+        return lambda dev, inputs: model_app(dev, "neural_bots", inputs, speculation=spec,
+                                             bots=bots)
+
+    out["projectiles_p2p"] = spec_p2p(kernels, ts, tck, "spec projectiles", projectiles_make,
+                                      PROJECTILE_PLAYERS, spec_frames, branches[0],
+                                      key_script(PROJECTILE_KEYS), device, attestation=True,
+                                      cpu_frames=MODEL_CPU_FRAMES[0])
+    out["neural_bots_p2p"] = spec_p2p(kernels, ts, tck, "spec neural_bots", bots_make,
+                                      BOT_PLAYERS, spec_frames, branches[1],
+                                      key_script(BOT_KEYS), device, attestation=True,
+                                      cpu_frames=MODEL_CPU_FRAMES[1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the learned input predictor
+# ---------------------------------------------------------------------------
+
+RANKER_SLOTS = 64
+
+
+def ranker_windows(bound, slots: int, players: int, seed: int):
+    """Random ``[S, W, P]`` universe-index windows with -1 gaps, and
+    anchors."""
+    rng = np.random.RandomState(seed)
+    V, W = len(bound.universe), bound.weights.window
+    win = rng.randint(0, V, (slots, W, players)).astype(np.int32)
+    win[rng.random_sample(win.shape) < 0.2] = -1
+    return win, rng.randint(0, 10_000, slots).astype(np.int32)
+
+
+def check_ranker(device: str = "cuda", slots: int = RANKER_SLOTS) -> dict:
+    """``BatchedRanker`` on ``device`` against its CPU run and the host
+    ``BoundPredictor`` rollout, bitwise, at P = 2 and 8 players and F = 8
+    and 12 frames; ``rank`` timed a call on the card."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.predict import InputPredictor, load_default
+    from bevy_ggrs_tpu_torch.predict.batch import BatchedRanker
+
+    bound = InputPredictor(load_default()).bind(list(box_game.INPUT_SPEC.values), np.uint8)
+    V = len(bound.universe)
+    out = {}
+    for players in (2, 8):
+        for frames in (8, 12):
+            win, anchors = ranker_windows(bound, slots, players, seed=players * 100 + frames)
+            ranker = BatchedRanker(bound, frames, device=device)
+            traj, order = ranker.rank(win, anchors)
+            cpu_traj, cpu_order = BatchedRanker(bound, frames, device="cpu").rank(win, anchors)
+            check(np.array_equal(traj, cpu_traj) and np.array_equal(order, cpu_order),
+                  f"ranker P={players} F={frames}: {device} differs from cpu")
+            for s_ in range(slots):
+                host_traj, logits = bound.rollout(win[s_], int(anchors[s_]), frames)
+                host_order = np.argsort(-logits[:, :V], axis=1, kind="stable")
+                check(np.array_equal(traj[s_], host_traj)
+                      and np.array_equal(order[s_], host_order),
+                      f"ranker P={players} F={frames} slot {s_}: differs from the host rollout")
+            key = f"P{players}_F{frames}"
+            out[key] = {"rank_ms": cuda_ms(lambda: ranker.rank(win, anchors), iters=20,
+                                           warmup=2) if device == "cuda" else None}
+    print(f"BatchedRanker on {device}: S={slots}, bitwise its cpu run and the host rollout "
+          f"at P = 2, 8 and F = 8, 12; rank ms a call " + json.dumps(out))
+    return out
+
+
+def predictor_phase(kernels, ts, tck, off_legs, frames: int = CONFIG5_FRAMES,
+                    branches: int = CONFIG5_BRANCHES, device: str = "cuda",
+                    slots: int = RANKER_SLOTS) -> dict:
+    """Phase 14: the ranker (:func:`check_ranker`), then a leg of config 5
+    on the native plane with every session built with the default
+    predictor and peer 0's tree seeded by it; its confirmed streams equal
+    ``off_legs[0]``'s (phase 12, predictor off)."""
+    out = {"ranker": check_ranker(device, slots)}
+    leg = config5_run_leg("native", device, frames, branches, predictor="default")
+    first = off_legs[0]
+    for i, (a, b) in enumerate(zip(first["streams"], leg["streams"])):
+        check(a == b, f"config5 predictor leg: peer {i}'s confirmed streams differ from leg 0's")
+    check(leg["spectator_stream"] == first["spectator_stream"],
+          "config5 predictor leg: the spectator stream differs from leg 0's")
+    peer0 = leg["peers"][0]
+    on, off = leg["counters"], first["counters"]
+    print(f"config5 predictor: peer 0 full / partial / misses {on['spec_hits']} / "
+          f"{on['spec_partial_hits']} / {on['spec_misses']} with the predictor, "
+          f"{off['spec_hits']} / {off['spec_partial_hits']} / {off['spec_misses']} without; "
+          f"predictor_rank ms {json.dumps(peer0['host_ms']['predictor_rank'])}, ticks "
+          f"{json.dumps(peer0['ticks'])}; confirmed streams equal to leg 0's")
+    out["leg"] = leg
     return out
 
 
@@ -2709,6 +3198,20 @@ def main() -> int:
     ck["batched_save"][f"B{CONFIG5_BRANCHES}"]["launches_per_rollout"] = (
         peer0["launches"].get("world_checksum", 0) - peer0["counts"]["saves_total"]
         - peer0["counts"]["restore_guards_total"]) / peer0["counts"]["spec_rollouts_total"]
+
+    phase("13 projectiles and neural_bots on cuda")
+    models = models_phase(kernels, ts, tck, integrity)
+    ck["launches"] += sum(v["launches"]["world_checksum"] for v in models["sync"].values())
+    for key in ("projectiles_p2p", "neural_bots_p2p"):
+        ck["launches"] += sum(l.get("world_checksum", 0) for run in ("on", "off")
+                              for l in models[key][run]["launches"])
+    for label, m in models["batched_save"].items():
+        ck["batched_save"][f"{label} B{m['branches']}"] = m
+    print("models " + json.dumps({k: models[k] for k in ("exact", "sync")}))
+
+    phase("14 the learned input predictor on cuda")
+    pred = predictor_phase(kernels, ts, tck, config5["legs"])
+    ck["launches"] += sum(p["launches"].get("world_checksum", 0) for p in pred["leg"]["peers"])
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())

@@ -1,7 +1,8 @@
 """PyTorch port, isolation: the port, ``chip_smoke.py`` and
 ``time_kernels.py`` import nothing of JAX or of the JAX package, and its entry points run on ``cuda`` unless told
 otherwise, raising when there is no GPU instead of falling back to the
-CPU."""
+CPU (the models' worlds, the predictor's batched ranker and the runners
+included)."""
 
 import ast
 import pathlib
@@ -16,9 +17,13 @@ from bevy_ggrs_tpu_torch import state as ts
 from bevy_ggrs_tpu_torch.app import GGRSPlugin, RollbackApp, SessionType
 from bevy_ggrs_tpu_torch.models import boids as tboids
 from bevy_ggrs_tpu_torch.models import box_game as tbox
+from bevy_ggrs_tpu_torch.models import neural_bots as tbots
+from bevy_ggrs_tpu_torch.models import projectiles as tproj
 from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
 from bevy_ggrs_tpu_torch.ops import checksum as tck
 from bevy_ggrs_tpu_torch.ops import pairwise as tpw
+from bevy_ggrs_tpu_torch.predict import InputPredictor, load_default
+from bevy_ggrs_tpu_torch.predict.batch import BatchedRanker
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
 from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
 from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
@@ -74,6 +79,10 @@ ENTRY_POINTS = {
         tbox.make_registry(), ts.to_host(tbox.make_world(2, device="cpu").commit())),
     "box_game.make_world": lambda: tbox.make_world(2),
     "boids.make_world": lambda: tboids.make_world(8, 2),
+    "projectiles.make_world().commit()": lambda: tproj.make_world(4).commit(),
+    "neural_bots.make_world().commit()": lambda: tbots.make_world(8, 2).commit(),
+    "BatchedRanker": lambda: BatchedRanker(
+        InputPredictor(load_default()).bind(list(range(16)), np.uint8), 8),
     "RollbackRunner": lambda: RollbackRunner(
         tbox.make_schedule(), tbox.make_world(2, device="cpu").commit(),
         max_prediction=4, num_players=2, input_spec=tbox.INPUT_SPEC),

@@ -491,14 +491,20 @@ def test_app_stage_runs_p2p_and_spectator_sessions():
     assert spec_app.frame > 100 and spec_app.stage.runner.rollbacks_total == 0
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
+    """Meshes still raise; speculation and the input predictor are ported
+    (the predictor's weights' hash is the handshake digest, 0 when off)."""
+    from bevy_ggrs_tpu_torch.predict import load_default
+
+    monkeypatch.delenv("GGRS_PREDICTOR", raising=False)
     plugin = box_plugin()
     assert plugin.with_speculation(4) is plugin  # ported: builds a speculating stage
     with pytest.raises(NotImplementedError):
         plugin.with_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SessionBuilder(box_game.INPUT_SPEC).with_input_predictor(True)
-    assert SessionBuilder(box_game.INPUT_SPEC)._config_digest() == 0
+    builder = SessionBuilder(box_game.INPUT_SPEC)
+    assert builder._config_digest() == 0
+    assert builder.with_input_predictor(True) is builder
+    assert builder._config_digest() == load_default().content_hash
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -57,13 +57,15 @@ def held_key_inputs(frames=FRAMES + 200, players=2):
 class Peer:
     """One peer of either package: its session, runner and checksum reader."""
 
-    def __init__(self, pkg, net, me, spectators=(), host=None):
+    def __init__(self, pkg, net, me, spectators=(), host=None, predictor=None):
         jax_side = pkg == "jax"
         self.pkg = pkg
         builder_cls = JBuilder if jax_side else TBuilder
         player = JPlayerType if jax_side else TPlayerType
         spec = jbox.INPUT_SPEC if jax_side else tbox.INPUT_SPEC
         builder = builder_cls(spec).with_num_players(2).with_max_prediction_window(8)
+        if predictor is not None:  # its hash is the handshake's digest
+            builder.with_input_predictor(predictor)
         sock = net.socket(("spec", 0) if host is not None else ("peer", me))
         if host is not None:
             self.session = builder.start_spectator_session(host, sock, clock=lambda: net.now)

@@ -7,7 +7,7 @@ ranking, the forward fill and the periodic extrapolation are bitwise the
 JAX package's on seeded inputs, scalar and vector. Dispatch dedup, restore
 invalidation, attestation (full coverage; the live ring untouched; a
 status-reading model caught; the memo; exhaustive mode), the app's events,
-the raises for meshes and the predictor, and boids under speculation (the
+the raise for meshes, the predictor's resolution, and boids under speculation (the
 force wrappers over a branch axis; a boids app attests on every path).
 The ledger's outputs equal the JAX ledger's.
 """
@@ -490,6 +490,38 @@ class TestAttestationMemo:
         assert len(calls) == 2
         assert tsr._fn_fp(make_drag(1.0)) == tsr._fn_fp(make_drag(1.0))
 
+    def test_decorated_system_attests_fresh(self, monkeypatch):
+        """A ``functools.wraps`` decorator is keyed by its own code and the
+        settings its closure carries, never as the bare system it wraps;
+        an ``lru_cache`` keys as the function it caches."""
+        import functools
+
+        def scaled(scale):
+            def wrap(system):
+                @functools.wraps(system)
+                def wrapper(state, inputs):
+                    state = system(state, inputs)
+                    v = state.components["velocity"] * scale
+                    return state.replace(components={**state.components, "velocity": v})
+                return wrapper
+            return wrap
+
+        bare = tbox.move_cube_system
+        fps = [tsr._fn_fp(bare), tsr._fn_fp(scaled(1.0)(bare)), tsr._fn_fp(scaled(0.5)(bare))]
+        assert len(set(fps)) == 3
+        assert tsr._fn_fp(scaled(0.5)(bare)) == fps[2]
+        assert tsr._fn_fp(functools.lru_cache(maxsize=None)(bare)) == ("lru_cache", fps[0])
+
+        calls = []
+        self._fresh(monkeypatch, calls)
+        for system in (bare, scaled(0.5)(bare)):
+            runner = SpeculativeRollbackRunner(
+                Schedule([system]), tbox.make_world(P, device="cpu").commit(),
+                max_prediction=8, num_players=P, input_spec=tbox.INPUT_SPEC, num_branches=4,
+                spec_frames=4, device="cpu")
+            runner.warmup()
+        assert len(calls) == 2
+
     def test_env_var_disables_cache(self, monkeypatch):
         calls = []
         self._fresh(monkeypatch, calls)
@@ -524,8 +556,12 @@ def test_exhaustive_verdict_not_served_from_standard_cache(monkeypatch):
 
 def test_boids_mesh_and_predictor_raise(monkeypatch):
     """Boids no longer raises: its runner's warmup attests every branch of
-    both tensors. Meshes and the predictor still raise, naming their
-    ROADMAP items."""
+    both tensors. Meshes still raise, naming their ROADMAP item. The
+    predictor is ported: ``True``/``"default"`` and ``GGRS_PREDICTOR=1``
+    bind the default weights, ``False`` and ``GGRS_PREDICTOR=off`` leave
+    it off, and a missing artifact raises when the runner is built."""
+    from bevy_ggrs_tpu_torch.predict import load_default
+
     monkeypatch.delenv("GGRS_PREDICTOR", raising=False)
     runner = SpeculativeRollbackRunner(tboids.make_schedule(kernel="mxu"),
                                        tboids.make_world(16, 2, device="cpu").commit(),
@@ -537,17 +573,20 @@ def test_boids_mesh_and_predictor_raise(monkeypatch):
     assert runner.attestation.real_checked == 2 * 4
     with pytest.raises(NotImplementedError, match="item 8"):
         make_runners(mesh=object())
-    for predictor in (True, "default", "weights.ggrspred"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            make_runners(predictor=predictor)
-    make_runners(predictor=False)
+    digest = load_default().content_hash
+    for predictor in (True, "default"):
+        assert make_runners(predictor=predictor)[1]._predictor.content_hash == digest
+    with pytest.raises(OSError):
+        make_runners(predictor="weights.ggrspred")
+    assert make_runners(predictor=False)[1]._predictor is None
+    assert make_runners()[1]._predictor is None
     monkeypatch.setenv("GGRS_PREDICTOR", "1")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_runners()
+    assert make_runners()[1]._predictor.content_hash == digest
+    assert make_runners(predictor=False)[1]._predictor is None
     monkeypatch.setenv("GGRS_PREDICTOR", "off")
-    make_runners()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        box_plugin(predictor=True).build()
+    assert make_runners()[1]._predictor is None
+    app = box_plugin(predictor=True).build()
+    assert app.stage.runner._predictor.content_hash == digest
 
 
 def _branch_axis_calls():
