@@ -206,9 +206,43 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    partial / misses beside that leg's, ``predictor_rank`` ms and the
    ticks printed.
 
+15. Supervised sessions and checkpoints on ``cuda``: box_game peers
+   (16 slots, ``max_prediction`` 8) driven through ``SessionSupervisor``
+   over a loopback on its stepped clock, on ``tests/test_supervisor.py``'s
+   harness and key script. (a) Three peers; after 40 render frames peer
+   2's cubes are moved 1.0 off their trajectory, then 200 more: peer 2
+   alone is quarantined once and recovers once by a ring transfer, no
+   ``DESYNC_DETECTED`` names a frame after the recovery, and at least 3
+   settled frames after it are bitwise equal on all three peers. (b) Two
+   peers; peer 1's socket closes at render frame 50 as a ``KillRestart``
+   directive scripts it, peer 0 plays 60 frames alone, then a fresh cuda
+   peer 1 ``begin_rejoin``s and plays 200: one recovery by a full
+   transfer, ``PLAYER_REJOINED`` on peer 0, the freeze window passed, and
+   the settled frames after the restart bitwise equal. Every transfer
+   digest, served and adopted, is one launch of the checksum kernel and
+   equal to ``checksum_plain`` of the same world on the CPU. (c) One ring
+   bit flipped (``integrity.flip_ring_bit``) under peers attested every 4
+   frames: one ``sdc_faults``, repaired in place bitwise, no quarantine,
+   and the checksums and worlds equal to a clean twin's. (d) A SyncTest
+   with a ``CheckpointManager`` (every 30 frames, 3 kept) crashes at frame
+   100; ``restore_latest`` into a fresh runner and session resumes at 90
+   and plays to 200, its stream bitwise the uninterrupted run's and its
+   cpu twin's; one bit flipped in the newest file for each of 8 seeds:
+   a file that no longer loads makes ``restore_latest`` fall back to the
+   one before (one such run plays on to 200, bitwise), one that still
+   loads gives the same world, and at least half fall back. (e) The peers
+   of (a) carry a ``SpanTracer`` and a ``FlightRecorder``, exported to a
+   temporary directory (Perfetto, spans and frames in JSONL,
+   ``metrics.prom``): the victim's trace and records hold the health edges
+   healthy -> quarantined -> healthy, the Prometheus text its recovery
+   counters. One ``supervisor`` line: the counters, recovery latency (on
+   the loopback's clock) and frames, transfer chunks and bytes, digests,
+   checksum launches, each check, the phase's wall seconds.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
 8 and 13, each P2P run of phases 10-14 (in the leg's process for 12 and
-14) and each boids attestation of phase 11, and read just after (the P2P
+14), each boids attestation of phase 11 and each piece of phase 15, and
+read just after (the P2P
 runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
 the kernel table (JSON), the card's name and power limit, and the result
@@ -517,6 +551,14 @@ def check_many_parts(ts, tck) -> None:
               f"bitwise equal to the plain version and the cpu")
 
 
+# Kineto drops a device record whose time, converted to the host's clock,
+# falls outside the profiler's capture window, so a kernel launched at the
+# window's first instant may go unrecorded (a guard's 4-byte read has been
+# seen recorded without its kernel). The profiled call sits this far inside
+# the window on both sides.
+PROFILE_MARGIN_S = 0.005
+
+
 def device_work(fn) -> dict:
     """The CUDA kernels and copies one call of ``fn`` runs, under
     ``torch.profiler``."""
@@ -525,8 +567,10 @@ def device_work(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"kernels": [n for n in names if not n.startswith(("Memcpy", "Memset"))],
             "h2d": [n for n in names if "HtoD" in n],
@@ -549,9 +593,11 @@ def check_one_launch(ts, tck, integrity, boids) -> None:
                           ("checksum", lambda: tck.checksum(state), 0),
                           ("verify_row", lambda: integrity.verify_row(ring, 3), 1),
                           ("batched ring_save", lambda: ts.ring_save(rings, branches, 3), 0)):
+        before = tck.world_checksum.launches
         work = device_work(fn)
+        launched = tck.world_checksum.launches - before - 1  # less device_work's warm call
         check(len(work["kernels"]) == 1 and not work["h2d"] and len(work["d2h"]) == d2h,
-              f"{name} under the profiler: {work}")
+              f"{name} under the profiler: {work}; the wrapper counted {launched} launch(es)")
         world = "box_game, B=64" if name.startswith("batched") else "boids-1,024"
         print(f"{name} ({world}) under torch.profiler: 1 CUDA kernel "
               f"({work['kernels'][0][:60]}), 0 host-to-device copies, "
@@ -2177,7 +2223,7 @@ def boids_spec_phase(kernels, force_kernels, ts, tck, tpw, frames: int = 300,
 CONFIG5_PLAYERS = 8
 CONFIG5_MAX_PREDICTION = 12
 CONFIG5_BRANCHES = 1024
-CONFIG5_FRAMES = 200
+CONFIG5_FRAMES = 150
 CONFIG5_NET = {"latency": 2 / 60, "jitter": 1 / 60, "loss": 0.02, "seed": 7}
 # Both legs run in child processes with this string-hash seed: the
 # sessions' endpoint order, and with it their timing, follows str hashing.
@@ -2386,13 +2432,13 @@ BOT_KEYS = (1, 2, 4, 0)
 PROJECTILE_PLAYERS, PROJECTILE_CAP, PROJECTILE_BRANCHES = 4, 64, 64
 BOTS, BOT_PLAYERS, BOT_BRANCHES = 512, 2, 32
 BOT_HIDDEN = (32, 256, 512)
-# The P2P runs play 400 frames on the card (cut from 600 to fit the
+# The P2P runs play 300 frames on the card (cut from 600 to fit the
 # script's time), and their cpu twins fewer (the CPU steps a
 # 64-branch projectiles or a 32-branch, 512-bot neural_bots rollout in
-# hundreds of ms): 96 frames, about 12 checksum exchanges, so that
+# hundreds of ms): 88 frames, 11 checksum exchanges, so that
 # TWIN_COMMON_FRAMES of them are confirmed on both.
-MODEL_SPEC_FRAMES = 400
-MODEL_CPU_FRAMES = (96, 96)
+MODEL_SPEC_FRAMES = 300
+MODEL_CPU_FRAMES = (88, 88)
 # The cpu twins of the neural_bots SyncTests play a prefix of the card's
 # frames: 150 of 300 at H = 32, 20 of 60 at H = 256 and 512 (a [512, H]
 # tanh_f32 step takes tens of ms on the CPU).
@@ -2805,6 +2851,464 @@ def predictor_phase(kernels, ts, tck, off_legs, frames: int = CONFIG5_FRAMES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: supervised sessions and checkpoints
+# ---------------------------------------------------------------------------
+
+SUP_DT = 1.0 / 60.0
+# Iterations of each piece (``tests/test_supervisor.py``'s harness): the
+# desync heal, three peers, 40 before the shift and 120 + 80 after; the
+# rejoin, two peers, killed at 50, peer 0 alone for 60 and the rejoin for
+# 200; the ring bit, two peers, 60 before the flip and 90 after, attested
+# every 4 frames.
+SUP_HEAL_ITERS = (40, 120, 80)
+SUP_REJOIN_ITERS = (50, 60, 200)
+SUP_SDC_ITERS = (60, 90)
+SUP_ATTEST_INTERVAL = 4
+# The resumed SyncTest: 200 frames, crashed at 100, a checkpoint every 30
+# frames, the newest 3 kept; bits flipped in the newest file for 8 seeds.
+SUP_DISK = {"frames": 200, "crash": 100, "interval": 30, "keep": 3}
+SUP_FLIP_SEEDS = 8
+
+
+def sup_keys(handle, frame):
+    """A key every 3 frames (UP, RIGHT, DOWN, none), below box_game's
+    speed clamp: ``tests/test_p2p.py``'s script."""
+    keys = (1, 8, 2, 0)  # INPUT_UP, INPUT_RIGHT, INPUT_DOWN, none
+    return np.uint8(keys[(frame // 3 + handle) % 4])
+
+
+def sup_peer(net, n, me, device, tracer=None, disconnect_timeout=0.5):
+    """One supervised box_game peer, 16 slots, ``max_prediction`` 8:
+    ``(session, runner, supervisor, metrics)``; the session, runner and
+    supervisor share one ``Metrics``."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.session.supervisor import SessionSupervisor
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    builder = (SessionBuilder(box_game.INPUT_SPEC).with_num_players(n)
+               .with_max_prediction_window(P2P_MAX_PREDICTION)
+               .with_disconnect_timeout(disconnect_timeout))
+    for h in range(n):
+        builder.add_player(PlayerType.local() if h == me else PlayerType.remote(("peer", h)), h)
+    metrics = Metrics()
+    session = builder.start_p2p_session(net.socket(("peer", me)), clock=lambda: net.now,
+                                        metrics=metrics, tracer=tracer)
+    check_plane(f"supervised peer {me}", session)
+    runner = RollbackRunner(box_game.make_schedule(),
+                            box_game.make_world(n, device=device).commit(),
+                            max_prediction=P2P_MAX_PREDICTION, num_players=n,
+                            input_spec=box_game.INPUT_SPEC, metrics=metrics, tracer=tracer,
+                            device=device)
+    return session, runner, SessionSupervisor(session, runner, metrics=metrics), metrics
+
+
+def sup_step(net, peer, inputs_for=sup_keys, events=None, recorder=None) -> None:
+    """One render frame of the supervisor's drive loop (the contract in
+    ``session/supervisor.py``'s docstring) on one peer; a rejoiner catches
+    up with up to 4 more steps a frame. States and exceptions are read by
+    name, so a peer of the JAX package runs through the same loop."""
+    session, runner, sup, _ = peer
+    session.poll_remote_clients()
+    got = sup.tick(net.now)
+    if events is not None:
+        events.extend(got)
+    if session.current_state().name == "RUNNING" and sup.should_advance():
+        for _ in range(1 + min(sup.frames_behind(), 4)):
+            for h in session.local_player_handles():
+                session.add_local_input(h, sup.input_for(h, inputs_for(h, session.current_frame)))
+            try:
+                runner.handle_requests(session.advance_frame(), session)
+            except Exception as e:  # either package's PredictionThreshold or StateFault
+                if type(e).__name__ == "PredictionThreshold":
+                    break
+                if type(e).__name__ == "StateFault":
+                    sup.on_state_fault(now=net.now)
+                    break
+                raise
+    if recorder is not None:
+        recorder.capture(session=session, runner=runner, supervisor=sup, events=got)
+
+
+def sup_run(net, peers, iters: int, events=None, recorders=None, inputs_for=sup_keys) -> None:
+    """``iters`` render frames of ``sup_step`` on every peer."""
+    for _ in range(iters):
+        net.advance(SUP_DT)
+        for i, peer in enumerate(peers):
+            sup_step(net, peer, inputs_for, None if events is None else events[i],
+                     None if recorders is None else recorders[i])
+
+
+def sup_settled(sessions) -> dict:
+    """The exchange frames settled on every session, and their checksums."""
+    upto = min(s.confirmed_frame() for s in sessions)
+    frames = sorted(f for f in sessions[0]._local_checksums
+                    if f <= upto and all(f in s._local_checksums for s in sessions[1:]))
+    return {f: [s._local_checksums[f] for s in sessions] for f in frames}
+
+
+def sup_kinds(events, name):
+    return [e for e in events if e.kind.name == name]
+
+
+# The supervisor's own counters, printed from a peer's metrics.
+SUP_COUNTERS = ("desyncs_detected", "desync_votes_won", "quarantines", "recoveries",
+                "state_transfers_served", "transfer_failures", "corrupt_chunks",
+                "peer_disconnects", "reconnects_initiated", "players_rejoined",
+                "network_interruptions", "sdc_faults", "sdc_escalations", "state_restores")
+
+
+def sup_counters(metrics) -> dict:
+    return {k: int(metrics.counters[k]) for k in SUP_COUNTERS if k in metrics.counters}
+
+
+def sup_transfers(peers) -> dict:
+    """Chunks and payload bytes the peers' supervisors served."""
+    chunks = [c for _, _, sup, _ in peers for cs in sup._served.values() for c in cs]
+    return {"chunks": len(chunks), "bytes": sum(len(c.payload) for c in chunks)}
+
+
+class DigestSpy:
+    """Records every transfer digest the supervisors compute, with a host
+    copy of its world and the checksum kernel's launches it made."""
+
+    def __init__(self, sup_mod, ts, tck):
+        self.sup_mod, self.ts, self.tck = sup_mod, ts, tck
+        self.real = sup_mod.transfer_digest
+        self.records = []
+
+    def __enter__(self):
+        def spy(state):
+            before = self.tck.world_checksum.launches
+            digest = self.real(state)
+            self.records.append({"device": state.device.type,
+                                 "launches": self.tck.world_checksum.launches - before,
+                                 "state": self.ts.tree_map(lambda x: x.cpu(), state),
+                                 "digest": digest})
+            return digest
+
+        self.sup_mod.transfer_digest = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sup_mod.transfer_digest = self.real
+        return False
+
+    def check(self, ts, tck, label: str, device: str) -> int:
+        """Every digest is the plain checksum of the same world on the CPU,
+        and on the card each took one launch of the kernel."""
+        for r in self.records:
+            plain = ts.combine64(tck.checksum_plain(r["state"]))
+            check(r["digest"] == plain, f"{label}: a transfer digest differs from the plain "
+                                        "checksum on the cpu")
+            check(r["device"] == device and (device != "cuda" or r["launches"] == 1),
+                  f"{label}: a digest on {r['device']} took {r['launches']} kernel launches")
+        check(self.records, f"{label}: no transfer digest was computed")
+        return len(self.records)
+
+
+def sup_heal(kernels, ts, tck, device, out_dir, iters=SUP_HEAL_ITERS) -> dict:
+    """(a) and (e): three supervised peers, each with a span tracer and a
+    flight recorder; peer 2's cubes shifted 1.0 off their trajectory."""
+    from bevy_ggrs_tpu_torch import obs
+    from bevy_ggrs_tpu_torch.session import protocol as proto
+    from bevy_ggrs_tpu_torch.session import supervisor as sup_mod
+    from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
+
+    net = LoopbackNetwork()
+    tracers = [obs.SpanTracer(pid=i, process_name=f"peer-{i}") for i in range(3)]
+    recorders = [obs.FlightRecorder() for _ in range(3)]
+    peers = [sup_peer(net, 3, me, device, tracers[me]) for me in range(3)]
+    events = [[], [], []]
+    reset_counts(kernels)
+    with DigestSpy(sup_mod, ts, tck) as spy:
+        sup_run(net, peers, iters[0], events, recorders)
+        check(all(s.current_state().name == "RUNNING" for s, *_ in peers),
+              "supervisor heal: a peer is not RUNNING")
+        victim = peers[2]
+        comps = dict(victim[1].state.components)
+        comps["translation"] = comps["translation"] + 1.0
+        victim[1].state = victim[1].state.replace(components=comps)
+        sup_run(net, peers, iters[1] + iters[2], events, recorders)
+    launches = tck.world_checksum.launches
+    m = victim[3]
+    recovered = sup_kinds(events[2], "RECOVERED")
+    checks = {}
+    checks["victim_quarantined_once"] = m.counters["quarantines"] == 1
+    checks["victim_recovered_once"] = m.counters["recoveries"] == 1
+    checks["recovery_is_a_ring_transfer"] = bool(recovered) and all(
+        e.data["kind"] == proto.STATE_KIND_RING for e in recovered)
+    check(all(checks.values()), f"supervisor heal: {checks}, counters {dict(m.counters)}")
+    at = recovered[0].data["frame"]
+    late = [e for ev in events for e in sup_kinds(ev, "DESYNC_DETECTED") if e.data["frame"] > at]
+    checks["no_desync_after_recovery"] = not late
+    settled = sup_settled([s for s, *_ in peers])
+    tail = {f: row for f, row in settled.items() if f > at}
+    checks["settled_after_recovery_equal"] = len(tail) >= 3 and all(
+        len(set(row)) == 1 for row in tail.values())
+    check(all(checks.values()), f"supervisor heal: {checks}; {len(tail)} frames after {at}")
+    checks["digests_equal_plain"] = spy.check(ts, tck, "supervisor heal", device) > 0
+    for i in (0, 1):
+        check(peers[i][3].counters.get("quarantines", 0) == 0,
+              f"supervisor heal: majority peer {i} quarantined")
+    # (e) the exports.
+    os.makedirs(out_dir, exist_ok=True)
+    files = {}
+    for i, (tr, rec) in enumerate(zip(tracers, recorders)):
+        obs.export_perfetto(tr, os.path.join(out_dir, f"peer{i}.perfetto.json"))
+        files[f"peer{i}_spans"] = tr.export_jsonl(os.path.join(out_dir, f"peer{i}.spans.jsonl"))
+        files[f"peer{i}_frames"] = rec.export_jsonl(os.path.join(out_dir, f"peer{i}.frames.jsonl"))
+    prom = obs.export_prometheus(m, recorders[2], path=os.path.join(out_dir, "metrics.prom"))
+    with open(os.path.join(out_dir, "peer2.perfetto.json")) as f:
+        trace = json.load(f)
+    edges = [(e["args"]["prev"], e["args"]["to"]) for e in trace["traceEvents"]
+             if e["name"] == "health" and e["ph"] == "i"]
+    checks["trace_health_edges"] = edges == [("healthy", "quarantined"), ("quarantined", "healthy")]
+    checks["recorder_health_edges"] = [t[1:] for t in recorders[2].health_transitions()] == [
+        ("HEALTHY", "QUARANTINED"), ("QUARANTINED", "HEALTHY")]
+    checks["prom_recovery_counters"] = all(
+        f"ggrs_{k}_total 1" in prom for k in ("quarantines", "recoveries")) and \
+        "ggrs_recovery_latency_ms_count 1" in prom
+    check(all(checks.values()), f"supervisor heal exports: {checks}, edges {edges}")
+    spans = tracers[2].summary()
+    return {
+        "checks": checks, "counters": [sup_counters(p[3]) for p in peers],
+        "recovery_latency_ms": list(m.series["recovery_latency_ms"]),
+        "recovery_frames": list(m.series["recovery_frames"]), "recovery_frame": at,
+        "settled_after_recovery": len(tail), "transfer": sup_transfers(peers),
+        "digests": len(spy.records), "launches": launches,
+        "frames": [r.frame for _, r, *_ in peers],
+        "spans": {k: spans[k] for k in ("sup_tick", "sup_apply_transfer") if k in spans},
+        "exports": files,
+    }
+
+
+def sup_rejoin(kernels, ts, tck, device, iters=SUP_REJOIN_ITERS) -> dict:
+    """(b): peer 1 dies as a ``KillRestart`` directive scripts (its socket
+    closed), and a fresh peer 1 rejoins from peer 0's full checkpoint."""
+    from bevy_ggrs_tpu_torch.chaos import ChaosPlan, KillRestart
+    from bevy_ggrs_tpu_torch.session import protocol as proto
+    from bevy_ggrs_tpu_torch.session import supervisor as sup_mod
+    from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
+
+    plan = ChaosPlan(7, (KillRestart(at=iters[0] * SUP_DT, peer=("peer", 1),
+                                     down_for=iters[1] * SUP_DT),))
+    (kill,) = plan.kill_restarts()
+    net = LoopbackNetwork()
+    a, b = (sup_peer(net, 2, me, device) for me in range(2))
+    ev = [[], []]
+    reset_counts(kernels)
+    with DigestSpy(sup_mod, ts, tck) as spy:
+        sup_run(net, [a, b], round(kill.at / SUP_DT), ev)
+        check(a[0].current_state().name == "RUNNING", "supervisor rejoin: peer 0 not RUNNING")
+        b[0].socket.close()
+        sup_run(net, [a], round(kill.down_for / SUP_DT), ev)
+        restart = a[0].current_frame
+        b2 = sup_peer(net, 2, 1, device)
+        b2[2].begin_rejoin(("peer", 0))
+        check(not b2[2].should_advance(), "supervisor rejoin: advancing before adoption")
+        sup_run(net, [a, b2], iters[2], ev)
+    launches = tck.world_checksum.launches
+    recovered = sup_kinds(ev[1], "RECOVERED")
+    checks = {
+        "peer0_saw_the_disconnect": a[3].counters["peer_disconnects"] == 1,
+        "rejoiner_recovered_once": b2[3].counters["recoveries"] == 1,
+        "recovery_is_a_full_transfer": bool(recovered) and all(
+            e.data["kind"] == proto.STATE_KIND_FULL for e in recovered),
+        "player_rejoined_on_peer0": bool(sup_kinds(ev[0], "PLAYER_REJOINED")),
+        "freeze_window_passed": b2[2]._freeze_until is None,
+    }
+    settled = sup_settled([a[0], b2[0]])
+    tail = {f: row for f, row in settled.items() if f > restart}
+    checks["settled_after_restart_equal"] = len(tail) >= 3 and all(
+        row[0] == row[1] for row in tail.values())
+    check(all(checks.values()), f"supervisor rejoin: {checks}, {len(tail)} frames after "
+                                f"{restart}, counters {dict(b2[3].counters)}")
+    checks["digests_equal_plain"] = spy.check(ts, tck, "supervisor rejoin", device) > 0
+    return {
+        "checks": checks, "counters": [sup_counters(a[3]), sup_counters(b2[3])],
+        "recovery_latency_ms": list(b2[3].series["recovery_latency_ms"]),
+        "recovery_frames": list(b2[3].series["recovery_frames"]), "restart_frame": restart,
+        "settled_after_restart": len(tail), "transfer": sup_transfers([a]),
+        "digests": len(spy.records), "launches": launches,
+        "frames": [a[1].frame, b2[1].frame],
+    }
+
+
+def sup_sdc(kernels, ts, tck, integrity, device, iters=SUP_SDC_ITERS) -> dict:
+    """(c): one bit flipped in peer 0's ring; the attestation repairs the
+    row in place. The same session without the flip is the clean twin."""
+    from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
+
+    def play(flip: bool):
+        net = LoopbackNetwork()
+        peers = [sup_peer(net, 2, me, device) for me in range(2)]
+        for _, _, sup, _ in peers:
+            sup.attest_interval = SUP_ATTEST_INTERVAL
+        ev = [[], []]
+        sup_run(net, peers, iters[0], ev)
+        info = None
+        if flip:
+            ring = peers[0][1].ring
+            frames = sorted(int(f) for f in ring.frames.cpu().numpy() if f >= 0)
+            peers[0][1].ring, info = integrity.flip_ring_bit(
+                ring, frames[len(frames) // 2] % ring.depth, np.random.RandomState(21))
+        sup_run(net, peers, iters[1], ev)
+        return peers, ev, info
+
+    reset_counts(kernels)
+    peers, ev, info = play(True)
+    twin, _, _ = play(False)
+    launches = tck.world_checksum.launches
+    m = peers[0][3]
+    faults = sup_kinds(ev[0], "STATE_FAULT")
+    checks = {
+        "one_sdc_fault": m.counters.get("sdc_faults", 0) == 1 and len(faults) == 1,
+        "repaired_in_place_bitwise": bool(faults) and faults[0].data["repaired"] is True
+        and faults[0].data["bitwise"] is True and faults[0].data["field"] == info["field"],
+        "no_quarantine": m.counters.get("quarantines", 0) == 0
+        and m.counters.get("desyncs_detected", 0) == 0,
+        "healthy": peers[0][2].health.name == "HEALTHY",
+    }
+    streams = [s._local_checksums for s, *_ in peers]
+    twin_streams = [s._local_checksums for s, *_ in twin]
+    checks["trajectory_equals_clean_twin"] = streams == twin_streams and all(
+        ts.combine64(tck.checksum(r.state)) == ts.combine64(tck.checksum(t.state))
+        for (_, r, *_), (_, t, *_) in zip(peers, twin))
+    check(all(checks.values()), f"supervisor sdc: {checks}, {info}, counters {dict(m.counters)}")
+    return {"checks": checks, "counters": sup_counters(m), "flipped": info,
+            "fault": {k: faults[0].data[k] for k in ("frames", "field", "bitwise")},
+            "launches": launches, "frames": [r.frame for _, r, *_ in peers],
+            "compared_with_twin": len(streams[0])}
+
+
+def sup_disk(kernels, ts, tck, integrity, device, ckpt_dir, disk=SUP_DISK,
+             seeds=SUP_FLIP_SEEDS) -> dict:
+    """(d): a SyncTest with a ``CheckpointManager`` crashes, and a fresh
+    runner and session resume from the newest checkpoint; a bit flipped in
+    that file makes the manager fall back to the one before."""
+    import shutil
+
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+    from bevy_ggrs_tpu_torch.utils.persistence import CheckpointManager, restore_runner
+
+    def pair(dev):
+        session = SyncTestSession(2, box_game.INPUT_SPEC, check_distance=7,
+                                  max_prediction=P2P_MAX_PREDICTION)
+        runner = RollbackRunner(box_game.make_schedule(),
+                                box_game.make_world(2, device=dev).commit(),
+                                max_prediction=P2P_MAX_PREDICTION, num_players=2,
+                                input_spec=box_game.INPUT_SPEC, device=dev)
+        return session, runner
+
+    def play(session, runner, upto, stream, mgr=None):
+        while runner.frame < upto:
+            for h in range(2):
+                session.add_local_input(h, sup_keys(h, runner.frame))
+            runner.handle_requests(session.advance_frame(), session)
+            stream[runner.frame] = ts.combine64(tck.checksum(runner.state))
+            if mgr is not None:
+                mgr.maybe_save(runner, session=session)
+        return stream
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    frames = disk["frames"]
+    reset_counts(kernels)
+    straight = play(*pair(device), frames, {})
+    mgr = CheckpointManager(ckpt_dir, interval=disk["interval"], keep=disk["keep"])
+    crashed = play(*pair(device), disk["crash"], {}, mgr)
+    saved = [f for f, _ in mgr._checkpoints()]
+    session, runner = pair(device)
+    meta = mgr.restore_latest(runner, session=session)
+    resumed_at = (runner.frame, session.current_frame)
+    resumed = play(session, runner, frames, {})
+    launches = tck.world_checksum.launches
+    cpu = play(*pair("cpu"), frames, {})
+    newest = max(saved)
+    checks = {
+        "kept_newest": saved == [newest - disk["interval"] * k
+                                 for k in range(disk["keep"] - 1, -1, -1)],
+        "restored_newest": meta is not None and resumed_at == (newest, newest),
+        "resumed_equals_straight": all(resumed[f] == straight[f] for f in resumed)
+        and len(resumed) == frames - newest,
+        "crashed_prefix_equals_straight": all(crashed[f] == straight[f] for f in crashed),
+        "cuda_equals_cpu": straight == cpu,
+    }
+    check(all(checks.values()), f"supervisor disk: {checks}, saved {saved}, resumed at "
+                                f"{resumed_at}")
+    # The newest file with one bit flipped, seed by seed: a file that no
+    # longer loads is skipped for the one before; a flip in bytes no reader
+    # uses (a zip header's date, say) loads the same world.
+    previous = sorted(saved)[-2]
+    outcomes = []
+    for seed in range(seeds):
+        flipped = f"{ckpt_dir}_flip{seed}"
+        shutil.rmtree(flipped, ignore_errors=True)
+        shutil.copytree(ckpt_dir, flipped)
+        path = os.path.join(flipped, f"ckpt_{newest}.npz")
+        integrity.flip_file_bit(path, np.random.RandomState(seed))
+        try:
+            restore_runner(path, pair("cpu")[1])
+            refused = False
+        except Exception:  # whatever the damaged file raises
+            refused = True
+        s2, r2 = pair(device)
+        got = CheckpointManager(flipped, interval=disk["interval"],
+                                keep=disk["keep"]).restore_latest(r2, session=s2)
+        check(got is not None, f"supervisor disk: seed {seed}: nothing restored")
+        if refused:
+            check(r2.frame == previous, f"supervisor disk: seed {seed}: a refused newest file "
+                                        f"restored frame {r2.frame}, not {previous}")
+            if not any(o["fell_back"] for o in outcomes):
+                # One fallback plays on to the end, bitwise the straight run.
+                again = play(s2, r2, frames, {})
+                check(all(again[f] == straight[f] for f in again),
+                      "supervisor disk: the run resumed from the older file differs")
+        else:
+            check(r2.frame == newest and ts.combine64(tck.checksum(r2.state))
+                  == straight[newest], f"supervisor disk: seed {seed}: a flip that loads "
+                                       "gave another world")
+        outcomes.append({"seed": seed, "fell_back": refused, "restored": r2.frame})
+        shutil.rmtree(flipped)
+    checks["flip_falls_back"] = sum(o["fell_back"] for o in outcomes) >= seeds // 2
+    check(checks["flip_falls_back"], f"supervisor disk: flips {outcomes}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"checks": checks, "saved": saved, "resumed_at": resumed_at[0],
+            "fallbacks": sum(o["fell_back"] for o in outcomes), "seeds": seeds,
+            "launches": launches, "frames": frames}
+
+
+def supervisor_phase(kernels, ts, tck, integrity, device: str = "cuda", out_dir=None,
+                     heal=SUP_HEAL_ITERS, rejoin=SUP_REJOIN_ITERS, sdc=SUP_SDC_ITERS,
+                     disk=SUP_DISK, seeds=SUP_FLIP_SEEDS) -> dict:
+    """Phase 15: (a) a desync healed by a ring transfer with (e) its span
+    trace, frame records and Prometheus text exported, (b) a killed and
+    restarted peer rejoining from a full checkpoint, (c) a ring bit
+    repaired in place by the attestation, (d) a SyncTest resumed from disk.
+    Prints one ``supervisor`` line; returns it."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    card = smi() if device == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sup_") as tmp:
+        out = {
+            "heal": sup_heal(kernels, ts, tck, device, out_dir or os.path.join(tmp, "obs"),
+                             heal),
+            "rejoin": sup_rejoin(kernels, ts, tck, device, rejoin),
+            "sdc": sup_sdc(kernels, ts, tck, integrity, device, sdc),
+            "disk": sup_disk(kernels, ts, tck, integrity, device, os.path.join(tmp, "ckpt"),
+                             disk, seeds),
+        }
+    out["launches"] = sum(v["launches"] for v in out.values())
+    out["wall_s"] = time.perf_counter() - t0
+    print("supervisor " + json.dumps(out) + f"; {card}", flush=True)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
@@ -3212,6 +3716,9 @@ def main() -> int:
     phase("14 the learned input predictor on cuda")
     pred = predictor_phase(kernels, ts, tck, config5["legs"])
     ck["launches"] += sum(p["launches"].get("world_checksum", 0) for p in pred["leg"]["peers"])
+
+    phase("15 supervised sessions and checkpoints on cuda")
+    ck["launches"] += supervisor_phase(kernels, ts, tck, integrity)["launches"]
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
