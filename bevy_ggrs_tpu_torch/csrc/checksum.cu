@@ -48,6 +48,12 @@
 // is saved into ring b of a [B, depth] stack, through the header's batch
 // steps: one launch saves every branch of a speculative frame, with the
 // bits of B single-world saves (the lanes are wrapping integer sums).
+// Over S match slots (the serving tier's burst and rollout) each world
+// carries its own frame: world b goes to row frames[b] mod depth of ring b,
+// the row computed here from a device tensor, and a keep-mask skips a slot
+// whole (no copy, no frame, no digest, lanes 0), as a masked save does in
+// the JAX package's rollout.py::_masked_ring_save. One launch saves every
+// slot of a burst step.
 // Guard mode hashes a ring row through pointers the host offset to it, and
 // writes 1 when the row does not hold the frame or its digest equals the
 // stored one, else 0.
@@ -101,6 +107,14 @@ struct Header {
   long long lanes_ring_stride;  // int64s between two rings' digests
   long long frame_stride;       // int32s between two rings' frames
   long long lanes_out_stride;   // int64s between two worlds' rows of out
+  // Save over [S] slots with a frame each (null: the scalar form above).
+  // dst, lanes_ring and frame_out then point at ring 0's row 0, and world
+  // b goes to row world_frames[b] mod depth (floor mod) of ring b. Where
+  // keep is given and keep[b] is 0, world b writes nothing of the ring and
+  // its lanes are 0.
+  const int* world_frames;
+  const unsigned char* keep;
+  int depth;
 };
 
 template <int K>
@@ -171,6 +185,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int i = threadIdx.x; i < h.n_parts; i += T) s_parts[i] = p.parts[i];
   __syncthreads();
   const long long b = blockIdx.x / P;  // the world row
+  if (h.mode == kSave && h.keep != nullptr && h.keep[b] == 0) {
+    // A masked slot: every block of its cluster leaves here, before any
+    // cluster barrier, so none waits for another.
+    if (rank == 0 && threadIdx.x == 0) {
+      h.lanes[2 * b] = 0;
+      h.lanes[2 * b + 1] = 0;
+      if (h.lanes_out != nullptr) {
+        h.lanes_out[b * h.lanes_out_stride] = 0;
+        h.lanes_out[b * h.lanes_out_stride + 1] = 0;
+      }
+    }
+    return;
+  }
+  // Save: the ring row this world goes to (0 in the scalar form, where the
+  // host offset the pointers to it) and the frame written there.
+  int row = 0, frame = h.frame;
+  if (h.world_frames != nullptr) {
+    frame = h.world_frames[b];
+    row = frame % h.depth;
+    if (row < 0) row += h.depth;
+  }
   const int s0 = (int)((long long)rank * h.cap / P);
   const int s1 = (int)((long long)(rank + 1) * h.cap / P);
   const int n = h.first_resource;  // the entity parts come first
@@ -255,7 +290,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int t = rank * T + (int)threadIdx.x, stride = P * T;
     for (int i = 0; i < h.n_parts; ++i) {
       const Part& q = s_parts[i];
-      copy_bytes(q.dst + b * h.dst_rows * q.row_bytes, q.src + b * q.row_bytes,
+      copy_bytes(q.dst + (b * h.dst_rows + row) * q.row_bytes, q.src + b * q.row_bytes,
                  q.row_bytes, t, stride);
     }
   }
@@ -292,7 +327,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       h.lanes[2 * b + 1] = ld;
     }
     if (h.mode == kSave) {
-      long long* ring_lanes = h.lanes_ring + b * h.lanes_ring_stride;
+      long long* ring_lanes = h.lanes_ring + b * h.lanes_ring_stride + 2 * row;
       ring_lanes[0] = la;
       ring_lanes[1] = ld;
       if (h.lanes_out != nullptr) {
@@ -300,7 +335,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         out[0] = la;
         out[1] = ld;
       }
-      h.frame_out[b * h.frame_stride] = h.frame;
+      h.frame_out[b * h.frame_stride + row] = frame;
     }
   }
   cluster.sync();  // no block leaves while rank 0 reads its lanes

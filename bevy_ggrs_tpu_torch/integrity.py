@@ -49,13 +49,15 @@ class StateFault(RuntimeError):
 
 
 def _state_digest(state: WorldState) -> torch.Tensor:
-    """Digest of one live world state (the bitwise-repair witness)."""
+    """Digest of one live world state, or of the serving tier's ``[S]``
+    stacked states (the bitwise-repair witness): one launch."""
     return checksum(state)
 
 
 def ring_digests(ring: SnapshotRing) -> torch.Tensor:
     """Recomputed per-row digests, shaped like ``ring.checksums``: one
-    kernel launch over every row."""
+    kernel launch over every row (a ``[depth]`` ring or ``[S, depth]``
+    rings)."""
     return checksum(ring.states)
 
 
@@ -79,13 +81,15 @@ def verify_row(ring: SnapshotRing, frame: int) -> bool:
     return bool(world_checksum(None, "guard", ring=ring, frame=frame).item())
 
 
-def warm(ring: SnapshotRing, state=None) -> None:
-    """Run the digest passes this ring and state will need once, so the
-    kernel is built before the session goes live (PyTorch compiles
-    nothing per shape, so one pass of each kind is enough)."""
-    ring_digests(ring)
-    if state is not None:
-        _state_digest(state)
+def warm(ring: SnapshotRing, state=None, states=None) -> None:
+    """Run every digest pass this ring and state (or ``[S]`` states) will
+    need once, so the kernel is built and each world structure's layout
+    cached before the session goes live: attestation and repair then
+    prepare nothing on the serving path (``utils.build_cache``)."""
+    ring_digests(ring)  # the guard reads the same layout as this pass
+    for live in (state, states):
+        if live is not None:
+            _state_digest(live)
 
 
 # ---------------------------------------------------------------------------

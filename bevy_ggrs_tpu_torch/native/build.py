@@ -34,18 +34,22 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """The library of ``native/<name>.cpp``, compiled if it is not built
     yet. Raises ``RuntimeError`` with the compiler's message on failure."""
+    from bevy_ggrs_tpu_torch.utils import build_cache
+
     lib = library_path(name)
     if lib.exists():
+        build_cache.record_cache_hit()
         return lib
     _OUT.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
     cmd = ["g++", *_FLAGS, str(_DIR / f"{name}.cpp"), "-o", str(tmp)]
     try:
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed (rc {done.returncode}):\n"
-                               f"{done.stderr.strip()}")
-        os.replace(tmp, lib)
+        with build_cache.timed("gxx", lib.name):
+            done = subprocess.run(cmd, capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"{' '.join(cmd)} failed (rc {done.returncode}):\n"
+                                   f"{done.stderr.strip()}")
+            os.replace(tmp, lib)
     finally:
         if tmp.exists():
             tmp.unlink()

@@ -21,14 +21,20 @@ Quick start::
     obs.export_perfetto(tracer, "trace.json")     # -> ui.perfetto.dev
     obs.export_prometheus(metrics, recorder)      # -> text exposition
 
-The JAX package's serving-side modules (provenance, merge, slo, report,
-profiler, attribution) are not ported yet, and neither are their names.
+The serving tier's modules (provenance, slo, report, profiler,
+attribution) are ported with it; ``merge`` (the fleet's trace merger)
+comes with the fleet tier.
 """
 
+from .attribution import AttributionProbe, profile_window
 from .forensics import DesyncForensics, desync_report
 from .ledger import SpeculationLedger, blame_divergence, null_ledger, replay_baseline
+from .profiler import HostProfiler, null_profiler
 from .prom import export_prometheus
+from .provenance import ProvenanceLog, SidecarSocket, flow_key
 from .recorder import FlightRecorder, FrameRecord
+from .report import build_report
+from .slo import SLOConfig, SlotSLO, WindowSLO
 from .timeseries import MetricWindow, P2Quantile, TimeSeries, null_timeseries
 from .trace import SpanTracer, null_tracer
 
@@ -39,20 +45,31 @@ def export_perfetto(tracer, path=None):
 
 
 __all__ = [
+    "AttributionProbe",
     "DesyncForensics",
     "FlightRecorder",
     "FrameRecord",
+    "HostProfiler",
     "MetricWindow",
     "P2Quantile",
+    "ProvenanceLog",
+    "SLOConfig",
+    "SidecarSocket",
+    "SlotSLO",
     "SpanTracer",
     "SpeculationLedger",
     "TimeSeries",
+    "WindowSLO",
     "blame_divergence",
+    "build_report",
     "desync_report",
     "export_perfetto",
     "export_prometheus",
+    "flow_key",
     "null_ledger",
+    "null_profiler",
     "null_timeseries",
     "null_tracer",
+    "profile_window",
     "replay_baseline",
 ]

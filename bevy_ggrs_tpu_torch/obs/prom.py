@@ -2,11 +2,12 @@
 sink (plus, optionally, the flight recorder's rollback-depth histogram).
 
 Counterpart of ``bevy_ggrs_tpu/obs/prom.py``: for equal ``Metrics``,
-recorder, time series and ledger it renders the same text, except that the
-JAX exporter's XLA compile section (``{ns}_xla_compile_ms`` and the
-``{ns}_xla_*_total`` counters, fed by ``bevy_ggrs_tpu/utils/xla_cache.py``)
-is left out: the port compiles no XLA programs, and the CUDA counterpart
-of that compile accounting comes with the serving tier.
+recorder, time series, ledger and compile events it renders the same
+text. The compile section keeps the JAX exporter's names
+(``{ns}_xla_compile_ms`` and the ``{ns}_xla_*_total`` counters) so one
+dashboard reads both packages; in the port it is fed by
+``utils/build_cache.py`` (kernel and native builds, layout preparations)
+instead of XLA's compile events.
 
 This is a *snapshot* exporter — it renders the current state of a
 :class:`~bevy_ggrs_tpu_torch.utils.metrics.Metrics` object as the text format a
@@ -163,6 +164,29 @@ def export_prometheus(
             lines.append(
                 f'{base}_blame_share{{player="{player}"}} {_num(share)}'
             )
+    # Build observatory (utils/build_cache.py): per-build wall times as a
+    # ggrs_xla_compile_ms summary plus the build/cache counters, under the
+    # JAX exporter's names. Process-global state, so it rides along in
+    # every export; zero builds emit nothing.
+    from ..utils import build_cache as _xla
+
+    cs = _xla.compile_summary()
+    if cs["count"]:
+        times = sorted(e["ms"] for e in _xla.compile_events())
+        base = f"{namespace}_xla_compile_ms"
+        type_line(base, "summary")
+        for q in (0.5, 0.95, 0.99):
+            idx = min(int(q * len(times)), len(times) - 1)
+            lines.append(
+                f'{base}{{quantile="{q}"}} {_num(times[idx])}'
+            )
+        lines.append(f"{base}_sum {_num(cs['total_ms'])}")
+        lines.append(f"{base}_count {_num(cs['count'])}")
+        counters = _xla.compile_counters()
+        for key in ("backend_compiles", "cache_tasks", "cache_hits"):
+            name = f"{namespace}_xla_{key}_total"
+            type_line(name, "counter")
+            lines.append(f"{name} {_num(counters.get(key, 0))}")
     if recorder is not None:
         hist = recorder.rollback_histogram()
         base = f"{namespace}_rollback_depth"

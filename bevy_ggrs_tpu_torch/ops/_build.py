@@ -55,11 +55,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     ``nvcc`` per source, all started together. Returns the seconds each
     build took (0.0 for one already built); the compiler's output, with
     ptxas's register and shared-memory report, goes to ``<lib>.log``."""
+    from bevy_ggrs_tpu_torch.utils import build_cache
+
     _OUT.mkdir(exist_ok=True)
     started = {}
     for name in names:
         lib = library_path(name)
         if lib.exists():
+            build_cache.record_cache_hit()
             continue
         tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
         log = open(lib.with_suffix(".log"), "w")
@@ -78,6 +81,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             failed.append(f"{name} (rc {rc}, see {lib.with_suffix('.log')})")
             continue
         os.replace(tmp, lib)
+        build_cache.record_compile("nvcc", seconds[name] * 1000.0, lib.name)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed))
     return seconds

@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from bevy_ggrs_tpu_torch.ops import _build
+from bevy_ggrs_tpu_torch.ops.pairwise import check_branch_cap
 
 # Pair elements ([cells, K, M]) per chunk of the plain version: at the
 # boids-32,768 grid a whole [C, K, M] intermediate is 184.5 M floats, and
@@ -124,6 +125,7 @@ def cell_slot_forces(kernel, rowvals: Dict[str, torch.Tensor],
         raise ValueError(f"pair kernel {kernel.name!r} does not read the "
                          f"features of its instantiation")
     b = lead[0] if lead else 1
+    check_branch_cap(b, "cell_slot_forces")
     if min(b, c, k, m) == 0:
         raise ValueError(f"empty grid B={b} C={c} K={k} M={m}")
     rows = torch.stack([rowvals[n] for n in row_names])  # [5, (B,) C, K]

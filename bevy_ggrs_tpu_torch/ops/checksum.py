@@ -134,6 +134,36 @@ def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
     return cs
 
 
+def save_slots_plain(ring: SnapshotRing, state: WorldState, frames: torch.Tensor,
+                     keep: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the ``save`` mode over ``[S]`` slots with a frame
+    each: what :func:`save_plain` of world ``s`` into ring ``s`` as
+    ``frames[s]`` does, for every slot with ``keep[s]`` set (all when
+    ``keep`` is None), in batched writes; a slot whose keep is off writes
+    nothing and gets lanes 0. Returns ``int64[S, 2]``, also written to
+    ``out`` when given."""
+    S = int(frames.shape[0])
+    if tuple(state.alive.shape[:-1]) != (S,) or tuple(ring.frames.shape[:-1]) != (S,):
+        raise ValueError("a slot save takes an [S] world, [S, depth] rings and int32[S] frames")
+    lanes = checksum_plain(state)  # row s: the checksum of world s alone
+    slots = torch.arange(S, device=state.device)
+    if keep is not None:
+        slots = slots[keep]
+        lanes = torch.where(keep[:, None], lanes, 0)
+    rows = torch.remainder(frames.to(torch.int64)[slots], ring.depth)
+
+    def put(r, x):
+        state_lib.signed_view(r)[slots, rows] = state_lib.signed_view(x)[slots]
+
+    tree_map(put, ring.states, state)
+    ring.frames[slots, rows] = frames[slots]
+    ring.checksums[slots, rows] = lanes[slots]
+    if out is not None:
+        out.copy_(lanes)
+    return lanes
+
+
 def guard_plain(ring: SnapshotRing, frame: int) -> torch.Tensor:
     """Plain version of the ``guard`` mode: ``int32[1]``, 1 when ring row
     ``frame % depth`` does not hold ``frame`` or still hashes to its
@@ -193,6 +223,10 @@ class _Header(ctypes.Structure):
         ("lanes_ring_stride", ctypes.c_longlong),
         ("frame_stride", ctypes.c_longlong),
         ("lanes_out_stride", ctypes.c_longlong),
+        # save over [S] slots: int32[S] frames and bool[S] keep, on the card
+        ("world_frames", ctypes.c_void_p),
+        ("keep", ctypes.c_void_p),
+        ("depth", ctypes.c_int),
     ]
 
 
@@ -353,7 +387,10 @@ def _prepared(state: WorldState) -> Tuple[Layout, List[torch.Tensor]]:
     key = _key(state, entries)
     found = _layouts.get(key)
     if found is None:
-        found = _layouts[key] = _build_layout(state, entries)
+        from bevy_ggrs_tpu_torch.utils import build_cache
+
+        with build_cache.timed("layout"):
+            found = _layouts[key] = _build_layout(state, entries)
     return found, [entries[i][2] for i in found.keep]
 
 
@@ -417,7 +454,9 @@ def _launch(lay: Layout, parts, header, B: int, device: torch.device) -> None:
 
 def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
                    ring: Optional[SnapshotRing] = None, frame: int = 0,
-                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   out: Optional[torch.Tensor] = None,
+                   frames: Optional[torch.Tensor] = None,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the checksum kernel in ``mode``:
 
     - ``"checksum"``: ``int64[*lead, 2]`` lanes of ``state``;
@@ -428,6 +467,12 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
       ``[B, depth]`` stack, saves world ``b`` into ring ``b`` and gives
       ``int64[B, 2]`` (``out`` may then be a view whose rows are strided,
       such as ``checksums[:, t]`` of a ``[B, F, 2]`` tensor);
+      With ``frames`` (``int32[S]``, on the world's device) the ``[S]``
+      world's slots save at frames of their own: world ``s`` into row
+      ``frames[s] mod depth`` (floor mod) of ring ``s``, the row computed
+      in the kernel; ``keep`` (``bool[S]``, or None for every slot) skips
+      a slot whole: no copy, no frame, no digest, lanes 0 (the JAX
+      package's ``_masked_ring_save``). One launch for all S slots;
     - ``"guard"``: ``int32[1]``, 1 when ring row ``frame % depth`` does not
       hold ``frame`` or hashes to its stored digest, 0 when corrupt
       (``state`` is None; a single ring only).
@@ -443,8 +488,22 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
                          f"{' and ' * all(wants)}{'a ring' * wants[1]}")
     if mode == "guard" and ring.frames.dim() != 1:
         raise ValueError("the guard takes a single ring, not a stack of rings")
+    if (frames is not None or keep is not None) and mode != "save":
+        raise ValueError("frames and keep belong to the save mode")
+    if keep is not None and frames is None:
+        raise ValueError("a keep-mask needs per-slot frames")
     device = (state if state is not None else ring.states).alive.device
+    if frames is not None:
+        S = tuple(state.alive.shape[:-1])
+        if len(S) != 1 or frames.dtype != torch.int32 or tuple(frames.shape) != S \
+                or frames.device != device:
+            raise ValueError(f"frames must be int32{list(S)} on {device} for an [S] world")
+        if keep is not None and (keep.dtype != torch.bool or tuple(keep.shape) != S
+                                 or keep.device != device):
+            raise ValueError(f"keep must be bool{list(S)} on {device}")
     if device.type == "cpu":
+        if frames is not None:
+            return save_slots_plain(ring, state, frames, keep, out)
         if mode == "checksum":
             return checksum_plain(state)
         if mode == "save":
@@ -483,6 +542,15 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
                                  "axes and device")
             _ring_pairs.add((id(slay), id(lay)))
         tensors = [_slot_major(t) for t in tensors]  # held until the launch
+        if frames is not None:
+            # The kernel finds each slot's row from its frame.
+            row = 0
+            frames_c, keep_c = _slot_major(frames), None
+            header.world_frames = frames_c.data_ptr()
+            if keep is not None:
+                keep_c = _slot_major(keep)
+                header.keep = keep_c.data_ptr()
+            header.depth = ring.depth
         for p, t, r, spec in zip(parts, tensors, rows, lay.parts):
             p.src = t.data_ptr()
             p.dst = r.data_ptr() + row * spec.row_bytes

@@ -48,6 +48,18 @@ import torch
 from bevy_ggrs_tpu_torch.ops import _build
 
 
+MAX_BRANCHES = 65535  # a force kernel's branches ride gridDim.y, capped here
+
+
+def check_branch_cap(branches: int, what: str) -> None:
+    """Raise before a launch whose branch axis (serving's slots x branches,
+    flattened) would exceed the ``gridDim.y`` cap of the force kernels:
+    the card would refuse it with no more than ``cudaErrorInvalidValue``."""
+    if branches > MAX_BRANCHES:
+        raise ValueError(f"{what}: {branches} branches exceed the force kernels' "
+                         f"cap of {MAX_BRANCHES:,} (gridDim.y)")
+
+
 def _squared(radius: float) -> float:
     """The float32 square JAX compares ``d2`` against
     (``jnp.float32(radius) ** 2``)."""
@@ -221,6 +233,7 @@ def pairwise_force_rows(
     device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
         return pairwise_force_rows_plain(*args, **params)
+    check_branch_cap(B, "pairwise_force_rows")
     warps, _ = force_rows_launch_shape(R)
     out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise", "ggrs_pairwise_force_rows", _ARGTYPES)
@@ -422,6 +435,7 @@ def pairwise_force_rows_mxu2(
     device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
         return pairwise_force_rows_mxu2_plain(*args, **params)
+    check_branch_cap(B, "pairwise_force_rows_mxu2")
     p, _ = mxu2_launch_shape(R, N)
     out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
@@ -495,6 +509,7 @@ def pairwise_force_square_mxu_tri(
                            active=(active, lead + (N,)))
     if device.type == "cpu":
         return pairwise_force_square_mxu_tri_plain(pos, vel, active, **params)
+    check_branch_cap(lead[0] if lead else 1, "pairwise_force_square_mxu_tri")
     part = torch.empty(lead + tri_scratch_shape(N), dtype=torch.float32,
                        device=device)
     out = torch.empty(pos.shape, dtype=torch.float32, device=device)

@@ -18,6 +18,15 @@ status ``[F, players]`` shared by every branch, rings a ``[B, depth]``
 stack and the lanes ``[B, F, 2]``. Each frame's save of all B branches is
 one launch of the checksum kernel, writing its lanes straight into
 ``checksums[:, t]``.
+
+The serving tier runs the burst over a ``[S]`` world of match slots
+(:func:`rollout_burst_slots`), where JAX vmaps the masked scan over the
+slot axis: each slot starts at its own frame and has masks of its own, so
+each step's save of all S slots is one launch of the checksum kernel
+with a frame and a keep flag a slot, and each step advances the ``[S]``
+world once, a slot whose advance is off keeping its state (JAX's
+``jnp.where``). :func:`ring_load_slots` loads each slot's own row of a
+``[S, depth]`` stack of rings.
 """
 
 from __future__ import annotations
@@ -28,7 +37,36 @@ import numpy as np
 import torch
 
 from bevy_ggrs_tpu_torch.schedule import PlayerInputs, Schedule
-from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, ring_load, ring_save
+from bevy_ggrs_tpu_torch.state import (
+    SnapshotRing,
+    WorldState,
+    ring_load,
+    ring_save,
+    signed_view,
+    tree_map,
+)
+
+
+def select_slots(keep: torch.Tensor, new: WorldState, old: WorldState) -> WorldState:
+    """Per slot of a ``[S]`` world, ``new`` where ``keep`` (``bool[S]``, on
+    the world's device) is set, else ``old``: a fresh world."""
+
+    def sel(n, o):
+        mask = keep.reshape((-1,) + (1,) * (n.dim() - 1))
+        return torch.where(mask, signed_view(n), signed_view(o)).view(n.dtype)
+
+    return tree_map(sel, new, old)
+
+
+def ring_load_slots(rings: SnapshotRing, frames) -> WorldState:
+    """Per slot ``s`` of a ``[S, depth]`` stack of rings, the state ring
+    ``s`` saved for ``frames[s]`` (host ints): one index gather into a
+    fresh ``[S]`` world, never a view of the rings."""
+    S, depth = tuple(rings.frames.shape)
+    device = rings.frames.device
+    rows = torch.as_tensor(np.mod(np.asarray(frames, np.int64), depth), device=device)
+    slots = torch.arange(S, device=device)
+    return tree_map(lambda r: signed_view(r)[slots, rows].view(r.dtype), rings.states)
 
 
 def rollout_burst(
@@ -59,6 +97,48 @@ def rollout_burst(
             state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
             frame += 1
     return ring, state, checksums
+
+
+def rollout_burst_slots(
+    schedule: Schedule,
+    rings: SnapshotRing,  # a [S, depth] stack of rings
+    states: WorldState,  # a [S] world
+    start_frames: np.ndarray,  # int[S], host: each slot's first frame
+    bits: torch.Tensor,  # [S, T, num_players, *input_shape]
+    status: torch.Tensor,  # int32[S, T, num_players]
+    save_mask: np.ndarray,  # bool[S, T], host
+    adv_mask: np.ndarray,  # bool[S, T], host
+) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+    """The burst of every slot of a ``[S]`` world at once: slot ``s``
+    runs its own steps from ``start_frames[s]`` with its own masks, the
+    semantics of ``S`` separate :func:`rollout_burst` calls. Step ``t``
+    makes at most one save launch (every slot that saves, each at its own
+    frame; the others masked) and one ``[S]`` schedule step (a slot whose
+    advance is off keeps its state). Returns ``(rings, states,
+    checksums[S, T, 2])``, zeros where a slot did not save; the rings are
+    updated in place."""
+    from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
+
+    save_mask = np.asarray(save_mask, bool)
+    adv_mask = np.asarray(adv_mask, bool)
+    S, T = save_mask.shape
+    device = states.device
+    adv = adv_mask.astype(np.int64)
+    # The frame each slot is at when step t runs (before it advances).
+    at = np.asarray(start_frames, np.int64)[:, None] + np.cumsum(adv, axis=1) - adv
+    frames_d = torch.as_tensor(np.ascontiguousarray(at.T).astype(np.int32), device=device)
+    keep_d = torch.as_tensor(np.ascontiguousarray(save_mask.T), device=device)
+    adv_d = torch.as_tensor(np.ascontiguousarray(adv_mask.T), device=device)
+    checksums = torch.zeros((S, T, 2), dtype=torch.int64, device=device)
+    for t in range(T):
+        if save_mask[:, t].any():
+            keep = None if save_mask[:, t].all() else keep_d[t]
+            world_checksum(states, "save", ring=rings, frames=frames_d[t], keep=keep,
+                           out=checksums[:, t])
+        if adv_mask[:, t].any():
+            new = schedule(states, PlayerInputs(bits=bits[:, t], status=status[:, t]))
+            states = new if adv_mask[:, t].all() else select_slots(adv_d[t], new, states)
+    return rings, states, checksums
 
 
 class RolloutExecutor:

@@ -577,6 +577,17 @@ class SnapshotRing:
         return dataclasses.replace(self, **changes)
 
 
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or for an unsigned type wider than a byte the same
+    bits as its signed type: PyTorch's ``where`` and index reads and writes
+    do not take those types on every device."""
+    to = _SIGNED.get(t.dtype)
+    return t if to is None else t.view(to)
+
+
 def ring_init(state: WorldState, depth: int) -> SnapshotRing:
     """A ring of ``depth`` copies of ``state`` with every row marked empty.
     Each row is its own memory (``clone`` after ``expand``), so a save into

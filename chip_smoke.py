@@ -239,9 +239,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the loopback's clock) and frames, transfer chunks and bytes, digests,
    checksum launches, each check, the phase's wall seconds.
 
+16. Batched multi-session serving on ``cuda`` (``serve/``): the checksum
+   kernel's save over ``[S]`` slots (a frame and a keep flag a slot, one
+   launch) bitwise its plain version at S = 1,024 over random frames
+   (negative ones too) and keep-masks, and timed; (a) box_game
+   ``BatchedSessionCore`` at the JAX bench's largest serving config (S =
+   1,024, 2 players, ``max_prediction`` 4, 8 branches x 4 frames), 120
+   ticks of ``bench.py``'s serve script, each tick exactly (burst steps in
+   which a slot saved) + 4 checksum launches; at tick 60 64 slots retire
+   and 64 fresh matches take them with every build counter
+   (``utils.build_cache``) unchanged from warmup; slots 0, 512, 1,023 and
+   a churned one bitwise their singleton ``SpeculativeRollbackRunner``
+   replays on the card (frame, 64-bit state checksum, ring digests); slots
+   0-15 at tick 60 bitwise a cpu twin's; (b) boids-64 at S = 256: the f32
+   force kernel once a burst step over the ``[S]`` world and once a
+   rollout frame over 2,048 worlds, three slots bitwise their singletons;
+   (c) ``MatchServer`` with 64 SyncTest matches (``serve_chaos_S64``'s
+   shapes) beside a control server: one session crash fenced and
+   readmitted, one ring bit flipped and repaired by ``_attest_sweep``, the
+   server killed at frame 120 and restored from its checkpoint; 24 frames
+   later every match bitwise the control's, no build counter moved; (d) a
+   ``serve`` line: tick p50/p99 over windows of 6 ticks,
+   ``matches_per_chip_at_60hz`` (S x 16.7 / p99), launches a tick, the
+   host split (``branch_build``, ``arg_assembly``) and the card.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
 8 and 13, each P2P run of phases 10-14 (in the leg's process for 12 and
-14), each boids attestation of phase 11 and each piece of phase 15, and
+14), each boids attestation of phase 11, each piece of phase 15 and each
+tick of phase 16 (each run of its server), and
 read just after (the P2P
 runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
@@ -251,6 +276,7 @@ the kernel table (JSON), the card's name and power limit, and the result
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -634,21 +660,30 @@ FORCE_CASES = (
 )
 
 
+def held_forces(tpw, label: str, args, params) -> tuple:
+    """The f32 force kernel on ``args`` within :data:`FORCE_ATOL` of its
+    plain version and bitwise its repeat; returns ``(error, largest
+    force)``."""
+    a = tpw.pairwise_force_rows(*args, **params)
+    b = tpw.pairwise_force_rows_plain(*args, **params)
+    c = tpw.pairwise_force_rows(*args, **params)
+    if a.is_cuda:
+        torch.cuda.synchronize()
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    check(err <= FORCE_ATOL, f"{label}: error {err}")
+    check(torch.equal(a, c), f"{label}: launch to launch")
+    check(scale > 1e-3, f"{label}: all near zero")
+    return err, scale
+
+
 def check_force_kernel(tpw, params) -> float:
     worst = 0.0
     for n, rows in FORCE_CASES:
         pos, vel, act = flock_inputs(n, seed=n)
         args = (pos[rows].contiguous(), vel[rows].contiguous(), pos, vel,
                 act[rows].contiguous(), act)
-        a = tpw.pairwise_force_rows(*args, **params)
-        b = tpw.pairwise_force_rows_plain(*args, **params)
-        c = tpw.pairwise_force_rows(*args, **params)
-        torch.cuda.synchronize()
-        err = (a - b).abs().max().item()
-        scale = b.abs().max().item()
-        check(err <= FORCE_ATOL, f"forces N={n} rows={rows}: error {err}")
-        check(torch.equal(a, c), f"forces N={n} rows={rows}: launch to launch")
-        check(scale > 1e-3, f"forces N={n} rows={rows}: all near zero")
+        err, scale = held_forces(tpw, f"forces N={n} rows={rows}", args, params)
         worst = max(worst, err)
         w, blocks = tpw.force_rows_launch_shape(args[0].shape[0])
         print(f"forces N={n} rows={rows.start}:{rows.stop} ({blocks} blocks of {w} rows) "
@@ -1046,6 +1081,13 @@ def device_busy(app, ticks: int = 8) -> dict:
             app.update(now)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return busy_of(prof, wall_ms, ticks)
+
+
+def busy_of(prof, wall_ms: float, ticks: int) -> dict:
+    """Per tick of a profiled window: wall ms, the device's busy ms (the
+    union of its kernel and copy intervals), the busy share and the four
+    costliest kernels' device ms."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     check(len(spans) > 0, "the profiler saw no device activity")
@@ -3309,6 +3351,556 @@ def supervisor_phase(kernels, ts, tck, integrity, device: str = "cuda", out_dir=
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: batched multi-session serving
+# ---------------------------------------------------------------------------
+
+# The largest serving config of the JAX package's bench
+# (serve_batched_box_game_S1024): 1,024 1v1 matches on one card, each with
+# max_prediction 4 and an 8-branch x 4-frame speculative rollout.
+SERVE_PLAYERS, SERVE_MAXPRED, SERVE_BRANCHES, SERVE_SPEC_FRAMES = 2, 4, 8, 4
+SERVE_SLOTS = 1024
+SERVE_TICKS = 120
+SERVE_WINDOW = 6  # ticks a timed window: one rollback each
+SERVE_CHURN = (64, 60)  # slots retired and admitted fresh, at this tick
+SERVE_SAMPLED = (0, 512, 1023)
+SERVE_TWIN = (16, 60)  # the cpu twin: slots 0..15 for 60 ticks
+SERVE_BOIDS = (64, 256, 24)  # boids per world, slots, ticks
+# serve_chaos_S64's shapes: 64 SyncTest matches in 4 stagger groups,
+# max_prediction 4, 8 branches x 3 frames, a 50 ms watchdog on a fake
+# clock, checkpoints every 60 frames.
+SERVE_SERVER = {"matches": 64, "groups": 4, "spec_frames": 3, "flaky": (3, 40),
+                "sdc_at": 90, "kill_at": 120, "after": 24, "interval": 60}
+
+
+def serve_script(treq, players: int, seed: int, ticks: int) -> list:
+    """``(requests, confirmed_frame)`` ticks in the canonical session shape
+    (the JAX package's ``bench.py::_serve_script``): 3 confirmed steps, a
+    2-deep predicted stall, then the rollback recovery tick; a seed a
+    match gives every match its own inputs."""
+    rng = np.random.RandomState(seed)
+
+    def adv(bits):
+        return treq.AdvanceFrame(bits=np.asarray(bits, np.uint8),
+                                 status=np.zeros(players, np.int32))
+
+    script, frame = [], 0
+    while len(script) < ticks:
+        for _ in range(3):
+            bits = rng.randint(0, 16, size=players)
+            script.append(([treq.SaveGameState(frame), adv(bits)], frame))
+            frame += 1
+        frontier = frame - 1
+        pred = rng.randint(0, 16, size=players)
+        for d in range(2):
+            script.append(([treq.SaveGameState(frame + d), adv(pred)], frontier))
+        frame += 2
+        reqs = [treq.LoadGameState(frame - 2)]
+        for t in range(2):
+            bits = pred if rng.rand() < 0.5 else rng.randint(0, 16, size=players)
+            reqs += [treq.SaveGameState(frame - 2 + t), adv(bits)]
+        reqs += [treq.SaveGameState(frame), adv(rng.randint(0, 16, size=players))]
+        script.append((reqs, frame))
+        frame += 1
+    return script[:ticks]
+
+
+def serve_model(model: str, device, n: int = SERVE_BOIDS[0]):
+    """``(schedule, initial world, input spec)`` of a serving model (boids
+    with ``n`` boids a world)."""
+    from bevy_ggrs_tpu_torch.models import boids, box_game
+
+    if model == "boids":
+        return (boids.make_schedule(), boids.make_world(n, SERVE_PLAYERS, device=device).commit(),
+                boids.INPUT_SPEC)
+    return (box_game.make_schedule(), box_game.make_world(SERVE_PLAYERS, device=device).commit(),
+            box_game.INPUT_SPEC)
+
+
+def serve_core(model: str, slots: int, device, metrics=None, n: int = SERVE_BOIDS[0]):
+    """A warmed core; its warmup tick (every slot's rollout) is priced:
+    ``core._exec.cost()`` holds its peak device bytes on the card."""
+    from bevy_ggrs_tpu_torch.serve import BatchedSessionCore
+
+    schedule, world, spec = serve_model(model, device, n)
+    core = BatchedSessionCore(schedule, world, SERVE_MAXPRED, SERVE_PLAYERS, spec,
+                              num_slots=slots, num_branches=SERVE_BRANCHES,
+                              spec_frames=SERVE_SPEC_FRAMES, metrics=metrics, device=device)
+    core._exec.enable_cost_capture(f"serve_{model}_S{slots}")
+    core.warmup()
+    return core
+
+
+def serve_slot_record(ts, core, slot: int) -> tuple:
+    """A slot's frame, state bytes and ring frames and digests, on the host."""
+    host = ts.to_host(core.slot_state(slot))
+    return (core.slots[slot].frame, [a.tobytes() for a in ts.tree_leaves(host)],
+            core.rings.frames[slot].cpu().numpy().tobytes(),
+            core.rings.checksums[slot].cpu().numpy().tobytes())
+
+
+def serve_singleton_equal(ts, model: str, core, slot: int, script, device,
+                          n: int = SERVE_BOIDS[0]) -> None:
+    """The zero-desync gate (``bench.py``'s): a port singleton
+    ``SpeculativeRollbackRunner`` on the same device plays the slot's
+    script; frame, ``combine64(checksum(state))`` and the ring's digests
+    must be bitwise the slot's."""
+    from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
+
+    schedule, world, spec = serve_model(model, device, n)
+    oracle = SpeculativeRollbackRunner(
+        schedule, world, max_prediction=SERVE_MAXPRED, num_players=SERVE_PLAYERS,
+        input_spec=spec, num_branches=SERVE_BRANCHES, spec_frames=SERVE_SPEC_FRAMES,
+        device=device)
+    oracle.warmup()
+    for reqs, confirmed in script:
+        oracle.tick(reqs, confirmed, None)
+    check(core.slots[slot].frame == oracle.frame
+          and ts.combine64(ts.checksum(core.slot_state(slot)))
+          == ts.combine64(ts.checksum(oracle.state))
+          and torch.equal(core.rings.checksums[slot].cpu(), oracle.ring.checksums.cpu()),
+          f"serve {model}: slot {slot} differs from its singleton replay")
+
+
+def check_slot_save(ts, tck, state, depth: int, masked: bool = True,
+                    label: str = "slot save") -> dict:
+    """The save of the ``[S]`` world ``state`` into ``[S, depth]`` rings (a
+    frame a slot and, with ``masked``, a keep flag a slot; one launch)
+    against its plain version on the same inputs, bitwise: lanes, ring
+    rows, frames and digests, over rounds of random frames (negative ones
+    too: floor mod) on rings already full, with keep-masks of every
+    density or (unmasked, as the rollout saves) none; then its device time
+    at that shape (every slot saving), its plain version's and its
+    bound."""
+    rng = np.random.RandomState(16)
+    device = state.device.type
+    slots = int(state.alive.shape[0])
+    rings = ts.branch_rings(ts.tree_map(lambda x: x[0], state), slots, depth)
+    for f in range(depth):
+        ts.ring_save(rings, state, f)
+    plain = clone_ring(ts, rings)
+    for r in range(4):
+        frames = torch.as_tensor(rng.randint(-50, 100000, slots).astype(np.int32), device=device)
+        keep = (torch.as_tensor(rng.rand(slots) < (1.0, 0.5, 0.1, 0.0)[r], device=device)
+                if masked else None)
+        before = tck.world_checksum.launches
+        got = tck.world_checksum(state, "save", ring=rings, frames=frames, keep=keep)
+        check(device == "cpu" or tck.world_checksum.launches == before + 1,
+              f"{label}: one launch")
+        want = tck.save_slots_plain(plain, state, frames, keep)
+        check(torch.equal(got, want), f"{label} round {r}: lanes differ from the plain version")
+        check(torch.equal(rings.frames, plain.frames)
+              and torch.equal(rings.checksums, plain.checksums)
+              and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, rings.states),
+                                                       world_leaves(ts, plain.states))),
+              f"{label} round {r}: the rings differ from the plain version's")
+    masks = ("keep-masks (all, half, a tenth, none)" if masked
+             else "no keep-mask (every slot saves)")
+    print(f"{label} S={slots} depth {depth}: lanes, rows, frames and digests bitwise equal "
+          f"to the plain version over 4 rounds of random frames and {masks}")
+    if device != "cuda":
+        return {}
+    frames = torch.arange(slots, dtype=torch.int32, device=device)
+    keep = torch.ones(slots, dtype=torch.bool, device=device) if masked else None
+    lay = tck.layout(state)
+    world_bytes = sum(p.row_bytes for p in lay.parts)
+    words = sum(p.words for p in lay.parts if p.role not in (tck.ALIVE, tck.RESOURCE))
+    ops = (int(state.alive.sum()) * (words * CHECKSUM_OPS_PER_WORD + FMIX_OPS)
+           + slots * lay.resource_words * (CHECKSUM_OPS_PER_WORD + FMIX_OPS))
+    # Each world read once and written once, its digest and frame written,
+    # its frame (and keep flag) read.
+    moved = slots * (2 * world_bytes + 16 + 4 + 4 + (1 if masked else 0))
+    t_bytes, t_ops = moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_I32_PER_S * 1e3
+    m = {"S": slots, "depth": depth, "masked": masked, "world_bytes": world_bytes,
+         "ms": graph_ms(lambda: tck.world_checksum(state, "save", ring=rings, frames=frames,
+                                                   keep=keep)),
+         "call_ms": cuda_ms(lambda: tck.world_checksum(state, "save", ring=rings, frames=frames,
+                                                       keep=keep)),
+         "plain_ms": cuda_ms(lambda: tck.save_slots_plain(plain, state, frames, keep), iters=20),
+         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+         else "operations", "bytes": moved, "ops": ops}
+    print(f"{label} S={slots} ({world_bytes} bytes a world): device {m['ms']:.6f} ms (graph "
+          f"replay), per call with host work {m['call_ms']:.6f} ms, plain {m['plain_ms']:.6f} "
+          f"ms a call; bound {m['bound_ms']:.7f} ms ({m['bound_by']}: {moved} bytes, {ops} ops)")
+    return m
+
+
+def serve_ticks(core, scripts: dict, ticks, kernels, force=None, timed=None,
+                probe=None) -> dict:
+    """Tick every slot of ``scripts`` through ``ticks`` (a range), the
+    kernel counts set to 0 just before each tick and read just after: the
+    checksum kernel must have launched once per burst step in which some
+    slot saved plus once per rollout frame, and ``force`` (when given)
+    once per burst step with an advance plus once per rollout frame. With
+    ``timed``, whole windows of :data:`SERVE_WINDOW` ticks are timed (the
+    card synchronized at each window's end) and appended to it. With
+    ``probe`` (an ``obs.AttributionProbe``), each tick is its host window
+    and the core's dispatch its device window."""
+    from bevy_ggrs_tpu_torch.ops import checksum as tck
+
+    cuda = core.device.type == "cuda"
+    F = core.spec_frames
+    totals = {"world_checksum": 0, "force": 0, "ticks": 0, "branch_build_ms": 0.0,
+              "arg_assembly_ms": 0.0}
+    t0 = time.perf_counter()
+    for n, t in enumerate(ticks):
+        reset_counts(kernels)
+        core.attribution = probe
+        with probe.host() if probe is not None else contextlib.nullcontext():
+            core.tick({s: sc[t] + (None,) for s, sc in scripts.items()})
+        core.attribution = None
+        ex = core._exec
+        if cuda:
+            check(tck.world_checksum.launches == ex.last_save_steps + F,
+                  f"tick {t}: {tck.world_checksum.launches} checksum launches, "
+                  f"{ex.last_save_steps} saving burst steps + {F}")
+            if force is not None:
+                check(force.launches == ex.last_adv_steps + F,
+                      f"tick {t}: {force.launches} {force.__name__} launches, "
+                      f"{ex.last_adv_steps} advancing burst steps + {F}")
+        totals["world_checksum"] += tck.world_checksum.launches
+        totals["force"] += force.launches if force is not None else 0
+        totals["ticks"] += 1
+        totals["branch_build_ms"] += core.last_branch_build_ms
+        totals["arg_assembly_ms"] += core.last_arg_assembly_ms
+        if timed is not None and (n + 1) % SERVE_WINDOW == 0:
+            if cuda:
+                torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0) * 1e3 / SERVE_WINDOW)
+            t0 = time.perf_counter()
+    return totals
+
+
+def serve_core_phase(kernels, ts, tck, device="cuda", slots: int = SERVE_SLOTS,
+                     ticks: int = SERVE_TICKS, churn=SERVE_CHURN, twin=SERVE_TWIN,
+                     sampled=SERVE_SAMPLED) -> dict:
+    """(a) The box_game core: ``slots`` matches, ``ticks`` ticks, windows
+    of :data:`SERVE_WINDOW` ticks timed (the first is warmup); mid-run
+    ``churn[0]`` slots retire and as many are admitted fresh, with every
+    build counter unchanged from warmup on; the sampled slots (and a
+    churned one) bitwise their singleton replays; slots 0..15 at the churn
+    tick bitwise a cpu twin's."""
+    from bevy_ggrs_tpu_torch.obs import AttributionProbe
+    from bevy_ggrs_tpu_torch.ops import checksum as tck
+    from bevy_ggrs_tpu_torch.session import requests as treq
+    from bevy_ggrs_tpu_torch.utils import build_cache
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P = SERVE_PLAYERS
+    t_warm = time.perf_counter()
+    core = serve_core("box_game", slots, device, metrics=Metrics())
+    admitted = [core.admit() for _ in range(slots)]
+    warm_s = time.perf_counter() - t_warm
+    counters0 = build_cache.compile_counters()
+    shapes0 = core._exec.cache_size()
+    scripts = {s: serve_script(treq, P, 1000 + s, ticks) for s in admitted}
+    n_churn, at = churn
+    times: list = []
+    totals = serve_ticks(core, scripts, range(at), kernels, timed=times)
+    twin_slots, twin_ticks = twin
+    twin_records = None
+    if at == twin_ticks:
+        twin_records = [serve_slot_record(ts, core, s) for s in range(twin_slots)]
+    # Churn: the slots from 100 on (fewer on a small run) retire; fresh
+    # matches take them.
+    first = min(100, slots - n_churn - 1)
+    churned = list(range(first, first + n_churn))
+    t_churn = time.perf_counter()
+    for s in churned:
+        core.retire(s)
+    for s in churned:
+        check(core.admit() == s, "a fresh match takes the lowest free slot")
+    churn_ms = (time.perf_counter() - t_churn) * 1e3
+    fresh = {s: serve_script(treq, P, 9000 + s, ticks - at) for s in churned}
+    late = {s: ([None] * at + fresh[s] if s in fresh else sc) for s, sc in scripts.items()}
+    busy = attribution = None
+    if device == "cuda":  # the last window under torch.profiler, untimed
+        from torch.profiler import ProfilerActivity, profile
+
+        more = serve_ticks(core, late, range(at, ticks - SERVE_WINDOW), kernels, timed=times)
+        torch.cuda.synchronize()
+        probe = AttributionProbe()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_prof = time.perf_counter()
+            last = serve_ticks(core, late, range(ticks - SERVE_WINDOW, ticks), kernels,
+                               probe=probe)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_prof) * 1e3
+        busy = busy_of(prof, wall_ms, SERVE_WINDOW)
+        attribution = probe.result(lanes=slots)
+        for k in ("world_checksum", "force", "ticks", "branch_build_ms", "arg_assembly_ms"):
+            more[k] += last[k]
+    else:
+        more = serve_ticks(core, late, range(at, ticks), kernels, timed=times)
+    check(build_cache.compile_counters() == counters0 and core._exec.cache_size() == shapes0 == 1,
+          f"serve: churn built or prepared something: {counters0} -> "
+          f"{build_cache.compile_counters()}, shapes {shapes0} -> {core._exec.cache_size()}")
+    for k in ("world_checksum", "force", "ticks", "branch_build_ms", "arg_assembly_ms"):
+        totals[k] += more[k]
+    for s in sampled:
+        serve_singleton_equal(ts, "box_game", core, s, scripts[s][:ticks], device)
+    serve_singleton_equal(ts, "box_game", core, churned[0], fresh[churned[0]], device)
+    # The rollout's own save: the last rollout's [S x B] worlds into fresh
+    # [S x B, F] rings, every slot saving.
+    SB = slots * SERVE_BRANCHES
+    rollout_save = check_slot_save(
+        ts, tck, ts.tree_map(lambda x: x.reshape((SB,) + tuple(x.shape[2:])), core.prev_states),
+        SERVE_SPEC_FRAMES, masked=False, label="rollout save")
+    if twin_records is not None:
+        cpu = serve_core("box_game", twin_slots, "cpu")
+        for _ in range(twin_slots):
+            cpu.admit()
+        serve_ticks(cpu, {s: scripts[s] for s in range(twin_slots)}, range(twin_ticks),
+                    kernels)
+        check(all(serve_slot_record(ts, cpu, s) == twin_records[s] for s in range(twin_slots)),
+              f"serve: the cpu twin's {twin_slots} slots differ from the card's")
+    windows = times[1:] if len(times) > 1 else times
+    p50, p99 = float(np.percentile(windows, 50)), float(np.percentile(windows, 99))
+    out = {"S": slots, "B": SERVE_BRANCHES, "F": SERVE_SPEC_FRAMES, "ticks": totals["ticks"],
+           "tick_p50_ms": p50, "tick_p99_ms": p99,
+           "matches_per_chip_at_60hz": slots * 16.7 / p99,
+           "launches_per_tick": {"world_checksum": totals["world_checksum"] / totals["ticks"]},
+           "launches": {"world_checksum": totals["world_checksum"]},
+           "host_ms_per_tick": {k: totals[k] / totals["ticks"]
+                                for k in ("branch_build_ms", "arg_assembly_ms")},
+           "spec": {"hits": core.spec_hits, "partial": core.spec_partial_hits,
+                    "misses": core.spec_misses, "rollbacks": core.rollbacks_total},
+           "cost": core._exec.cost(), "busy": busy, "attribution": attribution,
+           "rollout_save": rollout_save,
+           "dispatch_ms": {k: v for k, v in core.metrics.summary().get(
+               "serve_dispatch_ms", {}).items() if k in ("mean", "p50", "p99")},
+           "warmup_and_admission_s": warm_s, "churn_ms": churn_ms,
+           "windows_ms": windows, "sampled_bitwise": list(sampled) + [churned[0]],
+           "cpu_twin": f"{twin_slots} slots x {twin_ticks} ticks bitwise"}
+    print(f"serve box_game S={slots}: {totals['ticks']} ticks, tick p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms (windows of {SERVE_WINDOW}), {out['launches_per_tick']} launches a "
+          f"tick; the batched tick's host call {out['dispatch_ms']} ms; device busy "
+          f"{json.dumps(busy)}; last window attributed {json.dumps(attribution)}; churn of "
+          f"{n_churn} slots in {churn_ms:.1f} ms with no build; "
+          f"slots {out['sampled_bitwise']} bitwise their singletons; cpu twin equal")
+    return out
+
+
+def serve_boids_phase(kernels, ts, tpw, device="cuda", boids=SERVE_BOIDS) -> dict:
+    """(b) The boids core: ``slots`` boids-``n`` matches; the f32 force
+    kernel once a burst step over the ``[S]`` world and once a rollout
+    frame over the ``[S x B]`` one; sampled slots bitwise their
+    singletons. One more tick records the kernel's operands at both
+    shapes (the last call at each), and the kernel is held against its
+    plain version on them."""
+    from bevy_ggrs_tpu_torch.models import boids as tboids
+    from bevy_ggrs_tpu_torch.session import requests as treq
+
+    n, slots, ticks = boids
+    force = tpw.pairwise_force_rows
+    core = serve_core("boids", slots, device, n=n)
+    for _ in range(slots):
+        core.admit()
+    scripts = {s: serve_script(treq, SERVE_PLAYERS, 2000 + s, ticks + 1) for s in range(slots)}
+    times: list = []
+    totals = serve_ticks(core, scripts, range(ticks), kernels, force=force, timed=times)
+    seen = {}
+
+    def spy(*args, **params):
+        seen[tuple(args[0].shape[:-2])] = tuple(a.clone() for a in args)
+        return force(*args, **params)
+
+    tboids.pairwise_force_rows_kernel = spy
+    try:
+        last = serve_ticks(core, scripts, range(ticks, ticks + 1), kernels, force=force)
+    finally:
+        tboids.pairwise_force_rows_kernel = force
+    for k in ("world_checksum", "force", "ticks"):
+        totals[k] += last[k]
+    check(sorted(seen) == [(slots,), (slots * SERVE_BRANCHES,)],
+          f"serve boids: the force kernel ran at {sorted(seen)}")
+    force_err = 0.0
+    for lead, args in sorted(seen.items()):
+        err, scale = held_forces(tpw, f"serve boids forces {lead} x {n}", args,
+                                 tboids._kernel_params())
+        force_err = max(force_err, err)
+        print(f"serve boids forces over {lead[0]} worlds x {n} (the tick's own operands): "
+              f"max_abs_err={err:.3e} (atol {FORCE_ATOL}, largest force {scale:.4f}) "
+              f"repeat bitwise")
+    pos = core.states.components["position"]
+    check(bool(torch.isfinite(pos).all()) and tuple(pos.shape[:2]) == (slots, n),
+          "serve boids: positions")
+    for s in sorted({0, slots // 2, slots - 1}):
+        serve_singleton_equal(ts, "boids", core, s, scripts[s], device, n)
+    windows = times[1:] if len(times) > 1 else times
+    out = {"S": slots, "n": n, "worlds_a_rollout_frame": slots * SERVE_BRANCHES,
+           "ticks": totals["ticks"], "tick_p50_ms": float(np.percentile(windows, 50)),
+           "tick_p99_ms": float(np.percentile(windows, 99)), "force_err": force_err,
+           "launches": {"world_checksum": totals["world_checksum"],
+                        force.__name__: totals["force"]}}
+    print(f"serve boids-{n} S={slots}: {totals['ticks']} ticks, {totals['force']} "
+          f"{force.__name__} launches (one a step, {slots * SERVE_BRANCHES} worlds a rollout "
+          f"frame), tick p50 {out['tick_p50_ms']:.3f} ms; slots 0, {slots // 2}, {slots - 1} "
+          f"bitwise their singletons")
+    return out
+
+
+class FlakySession:
+    """``advance_frame`` raises exactly once, before the inner session
+    moves: the injected session crash."""
+
+    def __init__(self, inner, fail_at):
+        self._inner, self._fail_at, self.failed = inner, fail_at, False
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def advance_frame(self):
+        if not self.failed and self._inner.current_frame == self._fail_at:
+            self.failed = True
+            raise RuntimeError("injected session crash")
+        return self._inner.advance_frame()
+
+
+def serve_server_phase(kernels, ts, integrity, device="cuda", out_dir=None,
+                       cfg=SERVE_SERVER) -> dict:
+    """(c) ``MatchServer`` with ``cfg["matches"]`` SyncTest matches against
+    a control server: one session crash, fenced to a recovery lane and
+    readmitted; a ring bit flipped and found by ``_attest_sweep``, repaired
+    in place; the server killed after ``kill_at`` frames and restored from
+    its newest checkpoint into a fresh server; after ``after`` more frames
+    every match bitwise the control's, and no build counter moved from
+    warmup on."""
+    import tempfile
+
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.serve import MatchHandle, MatchServer
+    from bevy_ggrs_tpu_torch.session.builder import SessionBuilder
+    from bevy_ggrs_tpu_torch.utils import build_cache
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P, M = SERVE_PLAYERS, cfg["matches"]
+    clk = [0.0]
+    tmp = tempfile.TemporaryDirectory(dir=out_dir)
+    ckpt = os.path.join(tmp.name, "ckpt")
+
+    def build(checkpoint: bool):
+        server = MatchServer(
+            box_game.make_schedule(), box_game.make_world(P, device=device).commit(),
+            SERVE_MAXPRED, P, box_game.INPUT_SPEC, capacity=M, stagger_groups=cfg["groups"],
+            num_branches=SERVE_BRANCHES, spec_frames=cfg["spec_frames"], metrics=Metrics(),
+            clock=lambda: clk[0], watchdog_budget_ms=50.0, watchdog_strike_limit=3,
+            checkpoint_dir=ckpt if checkpoint else None,
+            checkpoint_interval=cfg["interval"], checkpoint_keep=3, attest_interval=None,
+            device=device)
+        server.warmup()
+        return server
+
+    def synctest():
+        return (SessionBuilder(box_game.INPUT_SPEC).with_num_players(P)
+                .with_max_prediction_window(SERVE_MAXPRED).with_check_distance(2)
+                .start_synctest_session())
+
+    def inputs_for(seed):
+        def f(frame, handle):
+            return np.uint8((frame * 3 + handle * 5 + seed) % 16)
+        return f
+
+    t0 = time.perf_counter()
+    control, server = build(False), build(True)
+    counters0 = build_cache.compile_counters()
+    flaky_match, fail_at = cfg["flaky"]
+    handles, c_handles = [], []
+    for m in range(M):
+        sess = synctest()
+        if m == flaky_match:
+            sess = FlakySession(sess, fail_at)
+        handles.append(server.add_match(sess, inputs_for(m)))
+        c_handles.append(control.add_match(synctest(), inputs_for(m)))
+    check(handles == c_handles, "the two servers placed the matches alike")
+    reset_counts(kernels)
+    injected = None
+    for frame in range(cfg["kill_at"]):
+        if frame == cfg["sdc_at"]:
+            h = handles[M // 2 + 1]
+            core = server.groups[h.group]
+            row = (core.slots[h.slot].frame - 2) % core.ring_depth
+            core.rings, injected = integrity.flip_ring_bit(
+                core.rings, row, np.random.RandomState(16), slot=h.slot)
+            server._attest_sweep()
+        server.run_frame()
+        control.run_frame()
+    detected = server.metrics.counters.get("sdc_detected", 0)
+    check(injected is not None and detected == 1 and server.sdc_repairs_total == 1,
+          f"serve sdc: detected {detected}, repaired {server.sdc_repairs_total} of 1 injected")
+    check(server.faults_total == 1 and server.readmissions_total == 1,
+          f"serve crash: {server.faults_total} faults, {server.readmissions_total} readmissions")
+    check(server.checkpointer.saves_total == cfg["kill_at"] // cfg["interval"],
+          f"serve: {server.checkpointer.saves_total} checkpoints")
+    launches = {k.__name__: k.launches for k in kernels}
+    faults = {"faults": server.faults_total, "readmissions": server.readmissions_total,
+              "last_recovery_frames": server.last_recovery_frames,
+              "sdc_injected": 1, "sdc_detected": detected,
+              "sdc_field": injected["field"], "checkpoints": server.checkpointer.saves_total}
+    del server  # the process dies: what survives is on disk
+    reborn = build(True)
+    restored = reborn.checkpointer.restore(reborn, {
+        (h.group, h.slot): {"session": synctest(), "local_inputs": inputs_for(m)}
+        for m, h in enumerate(handles)})
+    check(sorted(restored, key=lambda h: (h.group, h.slot))
+          == sorted(handles, key=lambda h: (h.group, h.slot)), "serve: restored handles")
+    reset_counts(kernels)
+    for _ in range(cfg["after"]):
+        reborn.run_frame()
+        control.run_frame()
+    for k in kernels:
+        launches[k.__name__] += k.launches
+    end = cfg["kill_at"] + cfg["after"]
+    for h in handles:
+        a, b = reborn.groups[h.group], control.groups[h.group]
+        check(a.slots[h.slot].frame == b.slots[h.slot].frame == end
+              and serve_slot_record(ts, a, h.slot) == serve_slot_record(ts, b, h.slot),
+              f"serve server: match {h} differs from the control's after the restore")
+    check(build_cache.compile_counters() == counters0,
+          "serve server: faults, readmission or the restore built or prepared something")
+    faults.update(matches=M, frames=end, wall_s=time.perf_counter() - t0,
+                  launches=launches)
+    tmp.cleanup()
+    print(f"serve server: {M} matches, {end} frames: crash fenced and readmitted "
+          f"(recovery {faults['last_recovery_frames']} frames), sdc in "
+          f"{faults['sdc_field']} detected and repaired, killed at {cfg['kill_at']} and "
+          f"restored from disk; every match bitwise the control's, no build")
+    return faults
+
+
+def serve_phase(kernels, ts, tck, integrity, tpw, device="cuda", out_dir=None,
+                small: bool = False) -> dict:
+    """Phase 16, serving: the burst's slot save against its plain version,
+    (a) the box_game core (and the rollout's save on its worlds), (b) the
+    boids core, (c) the match server; ``small`` cuts every size for a run
+    on the CPU."""
+    t0 = time.perf_counter()
+    depth = SERVE_MAXPRED + 1
+    if small:
+        save = check_slot_save(ts, tck, branch_worlds(ts, box_branch_worlds(ts, 8, device, 16)),
+                               depth)
+        core = serve_core_phase(kernels, ts, tck, device, slots=8, ticks=18, churn=(2, 12),
+                                twin=(4, 12), sampled=(0, 7))
+        boids_run = serve_boids_phase(kernels, ts, tpw, device, boids=(16, 2, 12))
+        server = serve_server_phase(kernels, ts, integrity, device, out_dir, cfg={
+            **SERVE_SERVER, "matches": 4, "groups": 2, "flaky": (1, 8), "sdc_at": 16,
+            "kill_at": 24, "after": 6, "interval": 12})
+    else:
+        save = check_slot_save(
+            ts, tck, branch_worlds(ts, box_branch_worlds(ts, SERVE_SLOTS, device, 16)), depth)
+        core = serve_core_phase(kernels, ts, tck, device)
+        boids_run = serve_boids_phase(kernels, ts, tpw, device)
+        server = serve_server_phase(kernels, ts, integrity, device, out_dir)
+    line = {**{k: core[k] for k in ("S", "B", "F", "tick_p50_ms", "tick_p99_ms",
+                                    "matches_per_chip_at_60hz", "launches_per_tick",
+                                    "host_ms_per_tick")},
+            "card": smi() if device == "cuda" else "cpu", "core": core, "boids": boids_run,
+            "server": server, "slot_save": save, "rollout_save": core["rollout_save"],
+            "wall_s": time.perf_counter() - t0}
+    print("serve " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
@@ -3719,6 +4311,16 @@ def main() -> int:
 
     phase("15 supervised sessions and checkpoints on cuda")
     ck["launches"] += supervisor_phase(kernels, ts, tck, integrity)["launches"]
+
+    phase("16 serving on cuda")
+    serve = serve_phase(kernels, ts, tck, integrity, tpw)
+    ck["slot_save"] = serve["slot_save"]
+    ck["rollout_slot_save"] = serve["rollout_save"]
+    ck["launches"] += (serve["core"]["launches"]["world_checksum"]
+                       + serve["boids"]["launches"]["world_checksum"]
+                       + serve["server"]["launches"]["world_checksum"])
+    forces[1024]["launches"] += serve["boids"]["launches"]["pairwise_force_rows"]
+    forces[1024]["max_abs_err"] = max(force_err, serve["boids"]["force_err"])
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())

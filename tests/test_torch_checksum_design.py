@@ -338,12 +338,17 @@ def test_c_source_agrees_with_the_wrapper():
     assert re.search(r"constexpr int kUnroll = (\d+);", src).group(1) == str(tck.UNROLL)
     assert f"h->n_parts <= {tck.MAX_PARTS}" in src
     # Field counts of the structs the C entry reads; the header ends in the
-    # save's four batch steps (8-byte aligned after the two u32 constants).
-    assert len(tck._Part._fields_) == 11 and len(tck._Header._fields_) == 20
-    assert [f for f, _ in tck._Header._fields_[-4:]] == [
+    # save's four batch steps (8-byte aligned after the two u32 constants),
+    # then the slot save's per-slot frames, keep-mask and ring depth.
+    assert len(tck._Part._fields_) == 11 and len(tck._Header._fields_) == 23
+    assert [f for f, _ in tck._Header._fields_[-7:-3]] == [
         "dst_rows", "lanes_ring_stride", "frame_stride", "lanes_out_stride"]
-    assert all(f"long long {f};" in src for f, _ in tck._Header._fields_[-4:])
-    assert ctypes.sizeof(tck._Header) == 7 * 8 + 9 * 4 + 4 + 4 * 8
+    assert all(f"long long {f};" in src for f, _ in tck._Header._fields_[-7:-3])
+    assert [f for f, _ in tck._Header._fields_[-3:]] == ["world_frames", "keep", "depth"]
+    assert all(decl in src for decl in ("const int* world_frames;",
+                                        "const unsigned char* keep;", "int depth;"))
+    # ... and after them the two slot pointers, the depth and its padding.
+    assert ctypes.sizeof(tck._Header) == 7 * 8 + 9 * 4 + 4 + 4 * 8 + 2 * 8 + 4 + 4
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from bevy_ggrs_tpu_torch.ops import pairwise as tpw
 from bevy_ggrs_tpu_torch.predict import InputPredictor, load_default
 from bevy_ggrs_tpu_torch.predict.batch import BatchedRanker
 from bevy_ggrs_tpu_torch.runner import RollbackRunner
+from bevy_ggrs_tpu_torch.serve import BatchedSessionCore, MatchServer
 from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
 from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
 from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
@@ -93,6 +94,12 @@ ENTRY_POINTS = {
         .build()),
     "GGRSPlugin.build (P2P stage)": lambda: p2p_app(),
     "GGRSPlugin.build (speculation)": lambda: p2p_app(speculation=4),
+    "BatchedSessionCore": lambda: BatchedSessionCore(
+        tbox.make_schedule(), tbox.make_world(2, device="cpu").commit(), 4, 2,
+        tbox.INPUT_SPEC, num_slots=2),
+    "MatchServer": lambda: MatchServer(
+        tbox.make_schedule(), tbox.make_world(2, device="cpu").commit(), 4, 2,
+        tbox.INPUT_SPEC, capacity=2, stagger_groups=1),
     "SpeculativeRollbackRunner": lambda: SpeculativeRollbackRunner(
         tbox.make_schedule(), tbox.make_world(2, device="cpu").commit(),
         max_prediction=4, num_players=2, input_spec=tbox.INPUT_SPEC, num_branches=4),
@@ -160,3 +167,18 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     cols = {name: torch.zeros((4, 160), device="meta") for name in kernel.col_names}
     with pytest.raises(ValueError, match="no kernel"):
         tcg.cell_slot_forces(kernel, rows, cols)
+
+
+def test_slot_save_launches_or_raises_off_the_cpu():
+    """The save over ``[S]`` slots with per-slot frames never takes its
+    plain version for a tensor off the CPU."""
+    world = ts.init_state(tbox.make_registry(), 8, device="meta")
+    slots = ts.tree_map(lambda x: x[None].expand((3,) + x.shape), world)
+    rings = ts.SnapshotRing(
+        states=ts.tree_map(lambda x: x[:, None].expand((3, 2) + x.shape[1:]), slots),
+        frames=torch.zeros((3, 2), dtype=torch.int32, device="meta"),
+        checksums=torch.zeros((3, 2, 2), dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        tck.world_checksum(slots, "save", ring=rings,
+                           frames=torch.zeros(3, dtype=torch.int32, device="meta"),
+                           keep=torch.ones(3, dtype=torch.bool, device="meta"))

@@ -223,13 +223,15 @@ def test_prometheus_text_equal_jax(monkeypatch):
     now[0] = 112.5
     text = obs.export_prometheus(*port[:1], recorder=port[2], timeseries=port[1])
     ref_text = jobs.export_prometheus(*ref[:1], recorder=ref[2], timeseries=ref[1])
-    # JAX's text carries its process's XLA compile section once any test
-    # in the process compiled with the listeners on; the port has none.
-    assert text.splitlines() == [line for line in ref_text.splitlines()
-                                 if "ggrs_xla_" not in line]
+    # Each package's text carries its process's compile section (JAX's
+    # XLA compiles, the port's builds) once anything in the process
+    # built; the rest is equal. test_torch_serve_obs.py holds the two
+    # compile sections equal for equal events.
+    assert [line for line in text.splitlines() if "ggrs_xla_" not in line] == [
+        line for line in ref_text.splitlines() if "ggrs_xla_" not in line]
     assert "ggrs_recoveries_total{peer=\"p\\\"0\"}" in text
     assert 'ggrs_ts_tick_ms{quantile="0.99"}' in text
-    assert "ggrs_rollback_depth_bucket" in text and "xla" not in text
+    assert "ggrs_rollback_depth_bucket" in text
 
 
 def test_p2_quantile_and_windows_equal_jax():
