@@ -461,6 +461,7 @@ class SpeculativeRollbackRunner(RollbackRunner):
                            if sampler is None else None)
         self._seed_memo = None
         self.predictor_rank_builds = 0
+        self.predictor_rank_ms_total = 0.0
         # Deferred checksum reports: (device lanes, [(row, frame)]), read at
         # the start of the next tick.
         self._pending_reports = []
@@ -482,8 +483,10 @@ class SpeculativeRollbackRunner(RollbackRunner):
         t0 = time.perf_counter()
         seed = self._predictor.seed(self._input_log, anchor, self.spec_frames,
                                     self.num_players)
+        ms = (time.perf_counter() - t0) * 1e3
         self.predictor_rank_builds += 1
-        self.metrics.observe("predictor_rank_ms", (time.perf_counter() - t0) * 1e3)
+        self.predictor_rank_ms_total += ms
+        self.metrics.observe("predictor_rank_ms", ms)
         self._seed_memo = (anchor, seed)
         return seed
 

@@ -153,8 +153,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    latency, 1 frame's jitter and 2 % loss (seed 7) on the JAX bench's key
    script, ``CONFIG5_FRAMES`` frames, four times in turns: on the native
    plane, under ``GGRS_NO_NATIVE=1`` on the Python one, Python again and
-   native again, each in a child process (``chip_smoke.py --config5``)
-   with ``PYTHONHASHSEED=0``. Each leg checks
+   native again, in turns in one child process (``chip_smoke.py
+   --config5``) with ``PYTHONHASHSEED=0``; the first leg attests and the
+   others reuse its memoized verdict. Each leg checks
    its plane on every peer, RUNNING, no ``DESYNC_DETECTED``, equal
    confirmed streams, the spectator's checksums equal to the host's, the
    attestation at 1,024 x 12 (``real_checked`` 2,048), a hit, and checksum
@@ -263,10 +264,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``matches_per_chip_at_60hz`` (S x 16.7 / p99), launches a tick, the
    host split (``branch_build``, ``arg_assembly``) and the card.
 
+17. The entry points on ``cuda``, as a user starts them. Started together
+   as processes: ``examples_torch/box_game_synctest.py`` at
+   ``check_distance`` 7 for 120 frames on ``cuda`` and with ``--device
+   cpu`` (the printed worlds equal), two ``box_game_p2p.py`` peers over UDP
+   on 127.0.0.1 for 120 frames (input delay 20 at 20 fps: zero desync
+   events and, on every settled frame both report, equal checksums), and
+   ``model_zoo_synctest.py --model boids --entities 1024 --kernel mxu`` for
+   60 frames (the tensor-core kernel once per advanced frame). Meanwhile,
+   in this process, ``bench_torch.py``'s rows of the headline,
+   ``box_game_4p_8f_x_256b``, ``box_game_8p_12f_x_1024b``,
+   ``boids_1k_8f_x_128b_mxu`` and ``box_game_recovery_8f_spec_vs_serial``,
+   each printed; the headline's rollout checksums on ``cuda`` are bitwise
+   the same rollout's on the CPU. The examples print their kernels'
+   launches (``--report-metrics``); they join the kernel table.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
-8 and 13, each P2P run of phases 10-14 (in the leg's process for 12 and
-14), each boids attestation of phase 11, each piece of phase 15 and each
-tick of phase 16 (each run of its server), and
+8 and 13, each P2P run of phases 10-14 (in the legs' process for 12 and
+14), each boids attestation of phase 11, each piece of phase 15, each
+tick of phase 16 (each run of its server) and each bench row and example
+process of phase 17, and
 read just after (the P2P
 runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
@@ -280,6 +297,7 @@ import contextlib
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -2260,14 +2278,15 @@ def boids_spec_phase(kernels, force_kernels, ts, tck, tpw, frames: int = 300,
 # max_prediction 12, no input delay, peer 0 speculating 1,024 branches x 12
 # frames, over a loopback of 2 frames' latency, 1 frame's jitter and 2 %
 # loss from seed 7. The JAX bench plays 1,800 frames; the card's run is cut
-# to CONFIG5_FRAMES a leg: phase 12 runs four legs and phase 14 a fifth,
-# each paying its own attestation at 1,024 x 12 (about 30 s).
+# to CONFIG5_FRAMES a leg: phase 12 runs four legs in one process, the
+# first paying the attestation at 1,024 x 12 (about 26 s) and the others
+# reusing its memoized verdict, and phase 14 a fifth in a process of its own.
 CONFIG5_PLAYERS = 8
 CONFIG5_MAX_PREDICTION = 12
 CONFIG5_BRANCHES = 1024
 CONFIG5_FRAMES = 150
 CONFIG5_NET = {"latency": 2 / 60, "jitter": 1 / 60, "loss": 0.02, "seed": 7}
-# Both legs run in child processes with this string-hash seed: the
+# The legs run in a child process with this string-hash seed: the
 # sessions' endpoint order, and with it their timing, follows str hashing.
 CONFIG5_HASH_SEED = "0"
 CONFIG5_LEG_SECONDS = 420
@@ -2300,7 +2319,7 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
     label = f"config5 {plane}" + (f" predictor {predictor}" if predictor else "")
     if on_card:
         reset_counts(kernels)
-    builds = []
+    builds, built = [], {}
 
     def make_app(dev, inputs):  # the first app built (peer 0) speculates
         spec = branches if not builds else 0
@@ -2308,6 +2327,8 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
         app = box_app(dev, inputs, players=CONFIG5_PLAYERS, speculation=spec,
                       max_prediction=CONFIG5_MAX_PREDICTION, predictor=predictor)
         builds.append(time.perf_counter() - t0)
+        if spec:  # the build's warmup and attestation rollouts
+            built.update({k: getattr(app.stage.runner, k) for k in CONFIG5_COUNTERS})
         return app
 
     run = P2PRun(make_app, device, CONFIG5_PLAYERS, seed=7, frames=frames, spectator=True,
@@ -2335,7 +2356,9 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
     out = {
         "plane": plane,
         "predictor": predictor,
-        "counters": {k: getattr(runner0, k) for k in CONFIG5_COUNTERS},
+        # Counted from the build on: a leg that reuses a memoized
+        # attestation dispatches fewer rollouts while it builds.
+        "counters": {k: getattr(runner0, k) - built[k] for k in CONFIG5_COUNTERS},
         "streams": [{str(f): cs for f, cs in run.confirmed_stream(p).items()}
                     for p in run.peers],
         "spectator_stream": {str(f): cs for f, cs in sorted(run.spectator["checksums"].items())},
@@ -2343,6 +2366,8 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
         "spectator": summary["spectator"],
         "attestation": {"scanned_branches": att.scanned_branches,
                         "real_checked": att.real_checked, "frames": att.frames,
+                        "memo_hits": getattr(runner0.metrics, "counters", {}).get(
+                            "attestation_cache_hits", 0),
                         "app_build_seconds": builds[0]},
         "confirmed_checksums": summary["confirmed_checksums"],
         "seconds": summary["seconds"],
@@ -2359,53 +2384,62 @@ def config5_leg(kernels, ts, tck, device, frames: int, branches: int,
 
 
 def config5_child(argv) -> int:
-    """``chip_smoke.py --config5 DEVICE FRAMES BRANCHES [PREDICTOR]``: one
-    leg of phase 12 or 14 (:func:`config5_leg`), its result the last line
-    of output."""
+    """``chip_smoke.py --config5 DEVICE FRAMES BRANCHES PLANES [PREDICTOR]``:
+    legs of phase 12 or 14 (:func:`config5_leg`) in this process, one for
+    each of the comma-separated ``PLANES``, each selected the way a user
+    does (``GGRS_NO_NATIVE=1`` for the Python plane); each leg's result is
+    a ``CONFIG5`` line."""
+    import gc
+
     device, frames, branches = argv[0], int(argv[1]), int(argv[2])
-    predictor = argv[3] if len(argv) > 3 else None
+    planes = argv[3].split(",")
+    predictor = argv[4] if len(argv) > 4 else None
     if device == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from bevy_ggrs_tpu_torch import ops
     from bevy_ggrs_tpu_torch import state as ts
-    from bevy_ggrs_tpu_torch.ops import cell_gather as tcg
     from bevy_ggrs_tpu_torch.ops import checksum as tck
-    from bevy_ggrs_tpu_torch.ops import pairwise as tpw
 
-    kernels = (tck.world_checksum, tpw.pairwise_force_rows, tpw.pairwise_force_rows_mxu2,
-               tpw.pairwise_force_square_mxu_tri, tcg.cell_slot_forces)
-    result = config5_leg(kernels, ts, tck, device, frames, branches, predictor)
-    print("CONFIG5 " + json.dumps(result), flush=True)
+    for plane in planes:
+        if plane == "python":
+            os.environ["GGRS_NO_NATIVE"] = "1"
+        else:
+            os.environ.pop("GGRS_NO_NATIVE", None)
+        t0 = time.perf_counter()
+        result = config5_leg(ops.wrappers(), ts, tck, device, frames, branches, predictor)
+        result["leg_seconds"] = time.perf_counter() - t0
+        print("CONFIG5 " + json.dumps(result), flush=True)
+        gc.collect()
     return 0
 
 
-def config5_run_leg(plane: str, device, frames: int, branches: int,
-                    predictor=None) -> dict:
-    """Run one leg in a child process: ``PYTHONHASHSEED`` fixed, and
-    ``GGRS_NO_NATIVE=1`` for the Python leg (the switch a user sets). The
-    child's lines are printed here."""
+def config5_run_legs(planes, device, frames: int, branches: int, predictor=None) -> list:
+    """Run a leg for each of ``planes`` in turn in one child process:
+    ``PYTHONHASHSEED`` fixed, the Python legs under ``GGRS_NO_NATIVE=1``.
+    The child's other lines are printed here."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("GGRS_NO_NATIVE", "BEVY_GGRS_TPU_NATIVE", "GGRS_PREDICTOR")}
     env["PYTHONHASHSEED"] = CONFIG5_HASH_SEED
-    if plane == "python":
-        env["GGRS_NO_NATIVE"] = "1"
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--config5", str(device),
-           str(frames), str(branches)] + ([predictor] if predictor else [])
+           str(frames), str(branches), ",".join(planes)] + ([predictor] if predictor else [])
     t0 = time.perf_counter()
     done = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
-                          timeout=CONFIG5_LEG_SECONDS)
+                          timeout=CONFIG5_LEG_SECONDS * len(planes))
     lines = done.stdout.splitlines()
     for line in lines:
         if not line.startswith("CONFIG5 "):
             print(line)
-    check(done.returncode == 0 and lines and lines[-1].startswith("CONFIG5 "),
-          f"config5 {plane} leg (predictor {predictor}): rc {done.returncode}: "
-          f"{done.stderr[-4000:]}")
-    result = json.loads(lines[-1][len("CONFIG5 "):])
-    check(result["plane"] == plane, f"config5: the {plane} leg ran on {result['plane']}")
-    result["process_seconds"] = time.perf_counter() - t0
-    return result
+    results = [json.loads(line[len("CONFIG5 "):]) for line in lines
+               if line.startswith("CONFIG5 ")]
+    check(done.returncode == 0 and len(results) == len(planes),
+          f"config5 legs {planes} (predictor {predictor}): rc {done.returncode}, "
+          f"{len(results)} results: {done.stderr[-4000:]}")
+    for plane, result in zip(planes, results):
+        check(result["plane"] == plane, f"config5: a {plane} leg ran on {result['plane']}")
+    print(f"config5: {len(planes)} leg(s) in one process of {time.perf_counter() - t0:.1f} s")
+    return results
 
 
 def config5_phase(kernels, ts, tck, frames: int = CONFIG5_FRAMES,
@@ -2414,9 +2448,9 @@ def config5_phase(kernels, ts, tck, frames: int = CONFIG5_FRAMES,
     """Phase 12. On the card, the batched save of ``branches`` 8-player
     box_game worlds into ``[branches, 12]`` rings bitwise against its
     plain version, and timed. Then a leg of config 5 for each of
-    ``planes``, in turns by default (native, Python under
-    ``GGRS_NO_NATIVE=1``, Python, native), so that the host's drift over
-    the phase falls on both planes alike. Every leg gives the first one's
+    ``planes``, in turns in one child process, by default native, Python
+    under ``GGRS_NO_NATIVE=1``, Python, native, so that the host's drift
+    over the phase falls on both planes alike. Every leg gives the first one's
     speculation counters on peer 0 and its confirmed streams on every peer
     and on the spectator."""
     out = {}
@@ -2427,7 +2461,7 @@ def config5_phase(kernels, ts, tck, frames: int = CONFIG5_FRAMES,
         del worlds
         out["batched_save"] = batched_save_time(ts, tck, branches, CONFIG5_MAX_PREDICTION,
                                                 CONFIG5_PLAYERS, seed=6)
-    legs = [config5_run_leg(plane, device, frames, branches) for plane in planes]
+    legs = config5_run_legs(planes, device, frames, branches)
     first = legs[0]
     check(first["plane"] == "native" and {leg["plane"] for leg in legs} == {"native", "python"},
           f"config5: the legs must start native and run both planes, not {planes}")
@@ -2445,7 +2479,7 @@ def config5_phase(kernels, ts, tck, frames: int = CONFIG5_FRAMES,
     print(f"config5: legs {', '.join(planes)} equal: peer 0 counters "
           + json.dumps(first["counters"]) + f", {len(first['streams'][0])} confirmed frames "
           f"on each of {len(first['streams'])} peers, {len(first['spectator_stream'])} "
-          f"spectator frames; legs " + ", ".join(f"{leg['process_seconds']:.1f}" for leg in legs)
+          f"spectator frames; legs " + ", ".join(f"{leg['leg_seconds']:.1f}" for leg in legs)
           + " s")
     for plane in ("native", "python"):
         mine = [leg for leg in legs if leg["plane"] == plane]
@@ -2876,7 +2910,7 @@ def predictor_phase(kernels, ts, tck, off_legs, frames: int = CONFIG5_FRAMES,
     predictor and peer 0's tree seeded by it; its confirmed streams equal
     ``off_legs[0]``'s (phase 12, predictor off)."""
     out = {"ranker": check_ranker(device, slots)}
-    leg = config5_run_leg("native", device, frames, branches, predictor="default")
+    leg = config5_run_legs(("native",), device, frames, branches, predictor="default")[0]
     first = off_legs[0]
     for i, (a, b) in enumerate(zip(first["streams"], leg["streams"])):
         check(a == b, f"config5 predictor leg: peer {i}'s confirmed streams differ from leg 0's")
@@ -3901,6 +3935,189 @@ def serve_phase(kernels, ts, tck, integrity, tpw, device="cuda", out_dir=None,
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the entry points (examples_torch/ and bench_torch.py)
+# ---------------------------------------------------------------------------
+
+ENTRY_SYNC_FRAMES = 120
+ENTRY_P2P = {"frames": 120, "fps": 20, "delay": 20}
+ENTRY_ZOO = {"entities": 1024, "frames": 60}
+ENTRY_BENCH = ("box_game_rollback_8f_x_256b_latency", "box_game_4p_8f_x_256b",
+               "box_game_8p_12f_x_1024b", "boids_1k_8f_x_128b_mxu",
+               "box_game_recovery_8f_spec_vs_serial")
+ENTRY_SECONDS = 300
+
+
+def free_udp_ports(n: int) -> int:
+    """The first of ``n`` free UDP ports in a row on 127.0.0.1."""
+    import socket
+
+    for base in range(23000 + (os.getpid() % 400) * 10, 60000, 10):
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                socks.append(sock)
+                sock.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError("no free UDP ports")
+
+
+def start_example(name: str, *args):
+    """An example of ``examples_torch/`` as a process, its output in files."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "examples_torch" / name),
+                             *map(str, args)], cwd=ROOT, stdout=out, stderr=err,
+                            stdin=subprocess.DEVNULL, text=True)
+    proc.files = (out, err)
+    return proc
+
+
+def finish_example(label: str, proc) -> str:
+    try:
+        proc.wait(timeout=ENTRY_SECONDS)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    texts = []
+    for f in proc.files:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    out, err = texts
+    check(proc.returncode == 0, f"entry points: {label} rc {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def example_world(out: str, tag: str) -> list:
+    """A printed world: from ``frame_count`` on the line holding ``tag``,
+    and the cube lines after it."""
+    lines = out.splitlines()
+    i = next(k for k, line in enumerate(lines) if tag in line)
+    block = [lines[i][lines[i].index("frame_count"):]]
+    block += [line for line in lines[i + 1:i + 9] if line.startswith("  cube")]
+    return block
+
+
+def example_launches(out: str) -> dict:
+    line = next(line for line in out.splitlines() if line.startswith("[kernels] "))
+    return json.loads(line[len("[kernels] "):])
+
+
+def entry_points_phase(kernels, ts, device: str = "cuda") -> dict:
+    """Phase 17 (its docstring entry). Returns the launches of the
+    checksum and mxu2 kernels in the examples' processes and the bench
+    rows, and the largest checksum difference (0) of the headline's
+    rollout, cuda against cpu."""
+    import bench_torch
+    from bevy_ggrs_tpu_torch import ops
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    p2p = ENTRY_P2P
+    base = free_udp_ports(2)
+    procs = {
+        "synctest": start_example("box_game_synctest.py", "--device", device,
+                                  "--check-distance", 7, "--frames", ENTRY_SYNC_FRAMES,
+                                  "--report-metrics"),
+        "synctest cpu": start_example("box_game_synctest.py", "--device", "cpu",
+                                      "--check-distance", 7, "--frames", ENTRY_SYNC_FRAMES),
+        "peer0": start_example("box_game_p2p.py", "--device", device, "--local-port", base,
+                               "--players", "localhost", f"127.0.0.1:{base + 1}",
+                               "--frames", p2p["frames"], "--fps", p2p["fps"],
+                               "--input-delay", p2p["delay"], "--report-metrics"),
+        "peer1": start_example("box_game_p2p.py", "--device", device, "--local-port",
+                               base + 1, "--players", f"127.0.0.1:{base}", "localhost",
+                               "--frames", p2p["frames"], "--fps", p2p["fps"],
+                               "--input-delay", p2p["delay"], "--report-metrics"),
+        "model_zoo": start_example("model_zoo_synctest.py", "--device", device,
+                                   "--model", "boids", "--entities", ENTRY_ZOO["entities"],
+                                   "--kernel", "mxu", "--check-distance", 7,
+                                   "--frames", ENTRY_ZOO["frames"], "--report-metrics"),
+    }
+    # The bench rows, in this process, while the examples run.
+    bench_torch.set_device(device)
+    rows, launches = {}, {}
+    for name in ENTRY_BENCH:
+        reset_counts(kernels)
+        rows[name] = bench_torch.run_config(name)
+        launches[name] = {k: n for k, n in ops.launch_counts().items() if n}
+        print(f"entry bench {name}: " + json.dumps(rows[name]), flush=True)
+    # The headline's rollout on the card and on the CPU, on the same bits.
+    ex, state, bits = bench_torch._box_game_case(2, 8, 256)
+    res = ex.run(state, 0, bits)
+    bench_torch.set_device("cpu")
+    ex_cpu, state_cpu, bits_cpu = bench_torch._box_game_case(2, 8, 256)
+    res_cpu = ex_cpu.run(state_cpu, 0, bits_cpu)
+    bench_torch.set_device(device)
+    check(np.array_equal(bits, bits_cpu), "entry points: the headline's bits differ")
+    lanes, lanes_cpu = (r.checksums.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+                        for r in (res, res_cpu))
+    check(np.array_equal(lanes, lanes_cpu),
+          "entry points: the headline's rollout checksums on cuda differ from the cpu's")
+    for name, row in rows.items():
+        check(row["value"] > 0 and row["platform"] == bench_torch._platform(),
+              f"entry points: bench row {name}: {row.get('value')} {row.get('platform')}")
+        if on_card:
+            check(launches[name].get("world_checksum", 0) > 0,
+                  f"entry points: bench row {name} launched no checksum kernel")
+    if on_card:
+        check(launches["boids_1k_8f_x_128b_mxu"].get("pairwise_force_rows_mxu2", 0) > 0,
+              "entry points: the config-4 row launched no mxu2 kernel")
+
+    out = {k: finish_example(k, p) for k, p in procs.items()}
+    sync, sync_cpu = (example_world(out[k], "synctest ok") for k in ("synctest", "synctest cpu"))
+    check(sync == sync_cpu and int(sync[0].split("=")[1]) >= ENTRY_SYNC_FRAMES - 3,
+          f"entry points: synctest worlds {sync} != {sync_cpu}")
+    settled = []
+    for peer in ("peer0", "peer1"):
+        log = out[peer]
+        check("desync" not in log, f"entry points: {peer} saw a desync: {log[-2000:]}")
+        frames = int(re.search(r"p2p done after (\d+) sim frames", log).group(1))
+        check(frames > p2p["delay"] + 30, f"entry points: {peer} ran {frames} frames")
+        line = next(x for x in log.splitlines() if x.startswith("[settled] "))
+        settled.append(json.loads(line[len("[settled] "):]))
+    common = sorted(set(settled[0]) & set(settled[1]), key=int)
+    check(len(common) >= 1 and all(settled[0][f] == settled[1][f] for f in common),
+          f"entry points: settled checksums differ on {common}")
+    zoo = dict(re.findall(r"(\w+)=(\S+)", next(
+        x for x in out["model_zoo"].splitlines() if x.startswith("[boids synctest ok]"))))
+    check(int(zoo["rollbacks"]) > 0, f"entry points: model_zoo {zoo}")
+    ex_launches = {k: example_launches(out[k]) for k in ("synctest", "peer0", "peer1",
+                                                         "model_zoo")}
+    if on_card:
+        advanced = int(zoo["frames"]) + int(zoo["resimulated"])
+        check(ex_launches["model_zoo"]["pairwise_force_rows_mxu2"] == advanced,
+              f"entry points: model_zoo mxu2 launches {ex_launches['model_zoo']} != "
+              f"{advanced} advanced frames")
+        for k, v in ex_launches.items():
+            check(v["world_checksum"] > 0, f"entry points: {k} launched no checksum kernel")
+    summary = {
+        "bench": {name: {k: row.get(k) for k in (
+            "value", "latency_ms", "sustained_ms", "within_budget_device",
+            "within_budget_wall", "spec_commit_speedup", "serial_resim_ms",
+            "kernel_launches_per_rollout")} for name, row in rows.items()},
+        "synctest_world": sync, "p2p_settled_common": len(common),
+        "p2p_frames": [int(re.search(r"after (\d+) sim", out[p]).group(1))
+                       for p in ("peer0", "peer1")],
+        "model_zoo": zoo, "example_launches": ex_launches,
+        "seconds": round(time.perf_counter() - t0, 2),
+    }
+    print("entry " + json.dumps(summary), flush=True)
+    total = {"world_checksum": 0, "pairwise_force_rows_mxu2": 0}
+    for counts in list(launches.values()) + list(ex_launches.values()):
+        for k in total:
+            total[k] += counts.get(k, 0)
+    return {"launches": total, "summary": summary}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
@@ -3911,7 +4128,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from bevy_ggrs_tpu_torch import integrity
+    from bevy_ggrs_tpu_torch import integrity, ops
     from bevy_ggrs_tpu_torch import state as ts
     from bevy_ggrs_tpu_torch.app import SessionType
     from bevy_ggrs_tpu_torch.models import boids, box_game
@@ -3927,9 +4144,8 @@ def main() -> int:
     # The plain versions' f32 products run in full f32 on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    force_kernels = (tpw.pairwise_force_rows, tpw.pairwise_force_rows_mxu2,
-                     tpw.pairwise_force_square_mxu_tri, tcg.cell_slot_forces)
-    kernels = (tck.world_checksum,) + force_kernels
+    kernels = ops.wrappers()
+    force_kernels = kernels[1:]
     params = boids._kernel_params()
 
     phase("1 device and build")
@@ -4321,6 +4537,11 @@ def main() -> int:
                        + serve["server"]["launches"]["world_checksum"])
     forces[1024]["launches"] += serve["boids"]["launches"]["pairwise_force_rows"]
     forces[1024]["max_abs_err"] = max(force_err, serve["boids"]["force_err"])
+
+    phase("17 entry points on cuda")
+    entry = entry_points_phase(kernels, ts)
+    ck["launches"] += entry["launches"]["world_checksum"]
+    mxu2["launches"] += entry["launches"]["pairwise_force_rows_mxu2"]
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())

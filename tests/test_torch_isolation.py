@@ -1,8 +1,9 @@
-"""PyTorch port, isolation: the port, ``chip_smoke.py`` and
-``time_kernels.py`` import nothing of JAX or of the JAX package, and its entry points run on ``cuda`` unless told
+"""PyTorch port, isolation: the port, ``chip_smoke.py``,
+``time_kernels.py``, ``bench_torch.py`` and the examples of
+``examples_torch/`` import nothing of JAX or of the JAX package, and its entry points run on ``cuda`` unless told
 otherwise, raising when there is no GPU instead of falling back to the
-CPU (the models' worlds, the predictor's batched ranker and the runners
-included)."""
+CPU (the models' worlds, the predictor's batched ranker, the runners and
+the bench included)."""
 
 import ast
 import pathlib
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench_torch
 from bevy_ggrs_tpu_torch import state as ts
 from bevy_ggrs_tpu_torch.app import GGRSPlugin, RollbackApp, SessionType
 from bevy_ggrs_tpu_torch.models import boids as tboids
@@ -31,9 +33,10 @@ from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
 from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+ENTRY_FILES = sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "bench_torch.py"]
 PORT_FILES = sorted((ROOT / "bevy_ggrs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "time_kernels.py"
-]
+] + ENTRY_FILES
 FORBIDDEN = ("jax", "jaxlib", "flax", "bevy_ggrs_tpu")
 
 
@@ -73,7 +76,26 @@ def test_importing_the_port_loads_no_jax_module():
     assert out[1:] in ([], [""]), f"the port loaded {out[1]}"
 
 
+def test_importing_the_bench_and_the_examples_loads_no_jax_module():
+    code = (
+        "import sys, importlib.util, pathlib\n"
+        "sys.path.insert(0, %r)\n"
+        "before = set(sys.modules)\n"
+        "for path in %r:\n"
+        "    spec = importlib.util.spec_from_file_location(pathlib.Path(path).stem, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "new = sorted(set(sys.modules) - before)\n"
+        "print(' '.join(m for m in new if m.split('.')[0] in %r))\n"
+        % (str(ROOT / "examples_torch"), [str(p) for p in ENTRY_FILES], FORBIDDEN)
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout.strip()
+    assert out == "", f"the entry points loaded {out}"
+    assert len(ENTRY_FILES) == 7
+
+
 ENTRY_POINTS = {
+    "bench_torch.set_device": lambda: bench_torch.set_device("cuda"),
     "init_state": lambda: ts.init_state(tbox.make_registry(), 4),
     "HostWorld.commit": lambda: ts.HostWorld(tbox.make_registry(), 4).commit(),
     "from_host": lambda: ts.from_host(

@@ -10,7 +10,7 @@ confirmed checksum streams on every peer and on the spectator (the
 sessions run on the network's virtual clock). A JAX speculating peer 0
 plays the same session with seven port peers and a port spectator without
 a desync.
-``chip_smoke.py``'s phase 12 runs here too, each leg in a child process.
+``chip_smoke.py``'s phase 12 runs here too, its legs in one child process.
 """
 
 import numpy as np
@@ -180,13 +180,16 @@ def test_jax_speculating_peer_with_seven_port_peers():
 def test_chip_smoke_phase_12_on_the_cpu():
     """``chip_smoke.py``'s phase 12 at the small size on the CPU, with two
     of the card's four legs: native and Python (``GGRS_NO_NATIVE=1``),
-    each in a child process, their counters and streams equal (the
-    batched save and the kernel counts are the card's only)."""
+    in turns in one child process, their counters and streams equal, the
+    second leg reusing the first one's attestation (the batched save and
+    the kernel counts are the card's only)."""
     out = chip_smoke.config5_phase((tck.world_checksum,), ts, tck, frames=FRAMES,
                                    branches=BRANCHES, device="cpu", planes=("native", "python"))
     assert [leg["plane"] for leg in out["legs"]] == ["native", "python"]
     native = out["legs"][0]
     assert native["attestation"]["real_checked"] == 2 * BRANCHES
+    assert native["attestation"]["memo_hits"] == 0
+    assert out["legs"][1]["attestation"]["memo_hits"] == 1
     assert native["attestation"]["frames"] == MAXPRED
     assert len(native["peers"]) == P and all(p["frames"] >= FRAMES for p in native["peers"])
     assert native["spectator"]["compared_with_host"] >= 10
