@@ -16,8 +16,17 @@ entity-scaling rows to 64k boids, 5: 8 players 12f x 1,024b,
 neural_bots and projectiles), the recovery comparisons (speculative
 commit against serial resimulation), live paced P2P sessions (4 models x
 speculation on/off over loopback, box_game over UDP, config 5 with 8
-players and a spectator), and batched serving (box_game and boids at S =
-16 to 1,024 matches, a fault-injected server and a data-corruption one).
+players and a spectator), batched serving (box_game and boids at S =
+16 to 1,024 matches, a fault-injected server and a data-corruption one),
+and the host tiers above serving: a relay fanning one match's stream out
+to 64 spectators (``relay_fanout_64spec``; ``GGRS_RELAY_SPECTATORS`` and
+``GGRS_RELAY_FRAMES`` shrink it) and a depth-2 relay tree to 1,000
+(``relay_tree_1k``), live migrations and a server-loss failover across two
+servers (``fleet_migrate_S64``), an open-loop admission ladder
+(``front_door_S256``) and the subprocess fleet's autoscale arc under the
+autopilot (``fleet_autoscale_N3``, and ``_chaos`` with faults on every
+child socket). Sharding's two configs wait for the port's
+``parallel/sharding.py`` and ``multihost.py`` (``WAITING``).
 
 Columns of a rollout row:
 
@@ -1592,6 +1601,1599 @@ def _serve_sdc_case(S: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The host tiers: relay fan-out, relay tree, fleet migration, front door and
+# the subprocess fleet's autoscale arc
+# ---------------------------------------------------------------------------
+
+# One confirmed-state stream replicated to 64 broadcast spectators.
+_RELAY_CONFIGS = ("relay_fanout_64spec",)
+# A depth-2 relay tree fanning the same stream to 1k spectators across 4
+# leaf relays.
+_RELAY_TREE_CONFIGS = ("relay_tree_1k",)
+_FLEET_CONFIGS = {"fleet_migrate_S64": 64}
+_FRONT_DOOR_CONFIGS = {"front_door_S256": 256}
+_AUTOSCALE_CONFIGS = {
+    "fleet_autoscale_N3": (3, False),
+    # The same arc with every child UDP socket behind a ChaosSocket
+    # (continuous loss/dup/corrupt/reorder and an asymmetric partition of
+    # server 0's sends).
+    "fleet_autoscale_N3_chaos": (3, True),
+}
+
+
+def _host_device_rtt_ms() -> float:
+    """The host's round trip through the card's stream: a tiny kernel and
+    a CUDA event recorded behind it, the host waiting on the event; the
+    median of 10 (0 on the CPU)."""
+    if not _cuda():
+        return 0.0
+    x = torch.zeros((), device=_dev())
+    ev = torch.cuda.Event()
+    times = []
+    for i in range(11):
+        t0 = time.perf_counter()
+        x.add_(1)
+        ev.record()
+        ev.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1000.0)
+    return float(np.median(times))
+
+
+def _prebuild_for_children() -> None:
+    """Build, in this process, every library a fleet child loads (the
+    checksum kernel on the card, the native planes), so the children find
+    them built and none builds at start."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.serve import MatchServer
+
+    srv = MatchServer(box_game.make_schedule(), box_game.make_world(2, device=_dev()).commit(),
+                      4, 2, box_game.INPUT_SPEC, capacity=2, stagger_groups=1,
+                      num_branches=8, spec_frames=3, device=_dev())
+    srv.warmup()
+    _sync()
+
+
+def _print_child_logs(root: str) -> None:
+    """The tail of every fleet child's stderr file under ``root``."""
+    import glob
+
+    for path in sorted(glob.glob(os.path.join(root, "*.stderr.log"))):
+        with open(path, "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+        print(f"--- {os.path.basename(path)}\n{tail}", file=sys.stderr)
+
+
+def _relay_fanout_case() -> dict:
+    """A live 2-peer match terminated entirely by a RelayServer, its
+    confirmed-state stream published ONCE and fanned out to S=64
+    ``StreamSpectator``s over loopback. This tier is host-CPU work by
+    design (delivery, not simulation), so the headline columns are
+    ``bytes_per_spectator_per_sec`` on the wire and
+    ``spectators_per_core_at_2f_lag``: 60 Hz frame budget divided by the
+    incremental relay pump cost per spectator — reported as a capacity
+    ONLY when the observed p99 lag of the real 64 spectators stays within
+    the 2-frame bound (otherwise the honest answer is the measured S)."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.relay import (
+        RelayServer, RelaySocket, StateCodec, StatePublisher,
+        StreamSpectator, peer_addr,
+    )
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import (
+        PlayerType, PredictionThreshold, SessionBuilder, SessionState,
+    )
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P = 2
+    MAXPRED = 8
+    S = int(os.environ.get("GGRS_RELAY_SPECTATORS", 64))
+    frames = int(os.environ.get("GGRS_RELAY_FRAMES", 900))
+    warm = 180    # pump-cost baseline window: relay runs with 0 subscribers
+    settle = 120  # post-subscribe frames excluded from the lag samples
+    net = LoopbackNetwork()
+    relay_metrics = Metrics()
+    # --trace-dir: passive provenance taps on the raw sockets + a span
+    # tracer on the relay, exported (plus a pre-merged timeline) for the
+    # obs/merge.py workflow. The taps transmit nothing, so the measured
+    # pump costs stay honest.
+    td = _bench_trace_dir("relay_fanout_64spec")
+    sidecars = []
+    relay_tracer = None
+
+    def tap(sock, component, pid):
+        if td is None:
+            return sock
+        from bevy_ggrs_tpu_torch.obs import ProvenanceLog, SidecarSocket
+
+        log = ProvenanceLog(component, pid=pid, clock=lambda: net.now)
+        sidecars.append(log)
+        return SidecarSocket(sock, log)
+
+    relay_sock = tap(net.socket(("relay", 0)), "relay", 100)
+    if td is not None:
+        from bevy_ggrs_tpu_torch.obs import SpanTracer
+
+        relay_tracer = SpanTracer(
+            clock=lambda: net.now, pid=100, process_name="relay"
+        )
+    relay = RelayServer(
+        relay_sock, clock=lambda: net.now,
+        metrics=relay_metrics, max_subscribers=max(S, 4096),
+        tracer=relay_tracer,
+    )
+
+    def scripted(handle, frame):
+        keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT,
+                box_game.INPUT_DOWN, 0]
+        return np.uint8(keys[(frame // 3 + handle) % len(keys)])
+
+    peers = []
+    for me in range(P):
+        rsock = RelaySocket(
+            tap(net.socket(("peer", me)), f"peer{me}", me),
+            [("relay", 0)],
+            session_id=1, peer_id=me, clock=lambda: net.now,
+        )
+        builder = (
+            SessionBuilder(box_game.INPUT_SPEC)
+            .with_num_players(P)
+            .with_max_prediction_window(MAXPRED)
+        )
+        for h in range(P):
+            builder.add_player(
+                PlayerType.local() if h == me
+                else PlayerType.remote(peer_addr(h)), h,
+            )
+        session = builder.start_p2p_session(rsock, clock=lambda: net.now)
+        runner = RollbackRunner(
+            box_game.make_schedule(), box_game.make_world(P, device=_dev()).commit(),
+            max_prediction=MAXPRED, num_players=P,
+            input_spec=box_game.INPUT_SPEC, device=_dev(),
+        )
+        runner.warmup()
+        peers.append((session, runner))
+    pub = StatePublisher(peers[0][0], peers[0][1], socket=peers[0][0].socket)
+    codec = StateCodec.for_state(box_game.make_world(P, device=_dev()).commit())
+    specs = [
+        StreamSpectator(
+            net.socket(("spec", s)), relays=[("relay", 0)], session_id=1,
+            codec=codec, clock=lambda: net.now,
+        )
+        for s in range(S)
+    ]
+
+    pump_ms_base, pump_ms_full = [], []
+    lag_samples = []
+    for tick in range(frames):
+        net.advance(_DT)
+        for session, runner in peers:
+            session.poll_remote_clients()
+            if session.current_state() != SessionState.RUNNING:
+                continue
+            for h in session.local_player_handles():
+                session.add_local_input(h, scripted(h, session.current_frame))
+            try:
+                runner.handle_requests(session.advance_frame(), session)
+            except PredictionThreshold:
+                pass
+        pub.publish(net.now)
+        # Pump AFTER publish: a deployed relay pumps continuously, far
+        # faster than the frame loop — pumping before publish would
+        # quantize one whole extra frame of lag into every sample.
+        t0 = time.perf_counter()
+        relay.pump(net.now)
+        (pump_ms_base if tick < warm else pump_ms_full).append(
+            (time.perf_counter() - t0) * 1000.0
+        )
+        if tick >= warm:
+            for spec in specs:
+                spec.poll(net.now)
+        if tick >= warm + settle:
+            head = pub._prev_frame
+            lag_samples.extend(max(0, head - s.current_frame) for s in specs)
+
+    lag = np.asarray(lag_samples, dtype=np.float64)
+    lag_p50 = float(np.percentile(lag, 50))
+    lag_p99 = float(np.percentile(lag, 99))
+    fanout_secs = (frames - warm) * _DT  # virtual seconds of fan-out
+    bytes_per_spec_sec = (
+        relay_metrics.counters.get("fanout_bytes_sent", 0.0) / S / fanout_secs
+    )
+    # Incremental pump cost per spectator: fan-out window minus the
+    # 0-subscriber baseline, split across S. This is the number a capacity
+    # plan actually needs — the forwarding plane rides the baseline.
+    per_spec_ms = max(
+        (float(np.mean(pump_ms_full)) - float(np.mean(pump_ms_base))) / S,
+        1e-4,
+    )
+    within_bound = lag_p99 <= 2.0
+    spectators_per_core = (
+        int((1000.0 * _DT) / per_spec_ms) if within_bound else S
+    )
+    if td is not None:
+        from bevy_ggrs_tpu_torch.obs import merge_traces
+
+        trace_paths, prov_paths = [], []
+        p = os.path.join(td, "relay_trace.json")
+        relay_tracer.export_perfetto(p)
+        trace_paths.append(p)
+        for log in sidecars:
+            p = os.path.join(td, f"{log.component}_provenance.jsonl")
+            log.export_jsonl(p)
+            prov_paths.append(p)
+        merge_traces(
+            trace_paths, prov_paths,
+            path=os.path.join(td, "merged_trace.json"),
+        )
+    return _entry(
+        "relay_fanout_64spec",
+        max(float(np.percentile(np.asarray(pump_ms_full), 99)), 1e-3),
+        MAXPRED, 1,
+        rtt_ms=-1.0,
+        spectators=S,
+        bytes_per_spectator_per_sec=round(bytes_per_spec_sec, 1),
+        spectator_lag_p50_frames=round(lag_p50, 2),
+        spectator_lag_p99_frames=round(lag_p99, 2),
+        spectators_per_core_at_2f_lag=spectators_per_core,
+        relay_pump_ms_mean=round(float(np.mean(pump_ms_full)), 4),
+        relay_pump_per_spectator_us=round(per_spec_ms * 1000.0, 2),
+        published_frames=int(pub.published_frames),
+        fanout_degraded=int(relay_metrics.counters.get("fanout_degraded", 0)),
+        fanout_shed=int(relay_metrics.counters.get("fanout_shed", 0)),
+        notes=(
+            "host-CPU delivery tier; capacity = 16.7ms frame budget / "
+            "incremental pump cost per spectator, gated on observed p99 "
+            f"lag <= 2 frames (observed p99 {lag_p99:.2f}f"
+            + ("" if within_bound else
+               " — BOUND EXCEEDED, reporting measured S instead") + ")"
+        ),
+    )
+
+
+def _relay_tree_1k_case() -> dict:
+    """Depth-2 relay tree (root -> 2 mids -> 4 leaves, relay/tree.py)
+    fanning ONE confirmed-state stream to S=1000 real ``StreamSpectator``s
+    spread across the leaf tier. Every leaf re-originates the bitwise-
+    identical stream its TierLink pulled through the tree, so the witness
+    columns are ``desyncs`` (final spectator state bytes compared against
+    the authoritative publisher, hard-gated to 0 in bench_gate.py) and
+    ``added_lag_frames_per_tier`` (worst per-tier contiguous-frontier lag,
+    acceptance bound <= 2 frames per tier). Capacity is per-LEAF: each
+    leaf relay is an independent process in deployment, so the tree serves
+    ``leaf_relays x (frame budget / incremental pump cost per spectator)``
+    while the root's cost stays O(links), not O(S) — that multiplier is
+    ``vs_single_relay_capacity``. The burst of S cold joins also exercises
+    the shared-keyframe cache: each leaf encodes ONE keyframe upstream and
+    serves the rest from cache (``keyframe_cache_hit_rate``, hard-gated
+    > 0)."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.relay import (
+        RelaySocket, StateCodec, StatePublisher, StreamSpectator, peer_addr,
+    )
+    from bevy_ggrs_tpu_torch.relay.tree import RelayTree
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import (
+        PlayerType, PredictionThreshold, SessionBuilder, SessionState,
+    )
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P = 2
+    MAXPRED = 8
+    S = int(os.environ.get("GGRS_RELAY_TREE_SPECTATORS", 1000))
+    frames = int(os.environ.get("GGRS_RELAY_TREE_FRAMES", 900))
+    MIDS = 2
+    LEAVES_PER_MID = 2
+    warm = 180    # pump-cost baseline window: tree runs with 0 spectators
+    settle = 120  # post-subscribe frames excluded from the lag samples
+    net = LoopbackNetwork()
+    td = _bench_trace_dir("relay_tree_1k")
+    sidecars = []
+    tracers = {}
+
+    def tap(sock, component, pid):
+        if td is None:
+            return sock
+        from bevy_ggrs_tpu_torch.obs import ProvenanceLog, SidecarSocket
+
+        log = ProvenanceLog(component, pid=pid, clock=lambda: net.now)
+        sidecars.append(log)
+        return SidecarSocket(sock, log)
+
+    def factory(addr):
+        # Uplink sockets are (addr, "uplink") tuples — derive a flat
+        # component name either way.
+        flat = (
+            f"relay{addr[0][1]}_uplink" if addr[1] == "uplink"
+            else f"relay{addr[1]}"
+        )
+        return tap(net.socket(addr), flat, 100 + len(sidecars))
+
+    def tracer_factory(addr):
+        if td is None:
+            return None
+        from bevy_ggrs_tpu_torch.obs import SpanTracer
+
+        t = SpanTracer(
+            clock=lambda: net.now, pid=100 + addr[1],
+            process_name=f"relay{addr[1]}",
+        )
+        tracers[addr] = t
+        return t
+
+    relay_metrics = {}
+
+    def metrics_factory(addr):
+        relay_metrics[addr] = Metrics()
+        return relay_metrics[addr]
+
+    tree = RelayTree(
+        factory, session_id=1, clock=lambda: net.now,
+        max_depth=2, fanout_capacity=max(S, 4096),
+        server_kwargs={"max_subscribers": max(S, 4096)},
+        metrics_factory=metrics_factory,
+        tracer_factory=tracer_factory if td is not None else None,
+    )
+    root = tree.add_relay()
+    mids = [tree.add_relay(parent=root.addr) for _ in range(MIDS)]
+    leaves = [
+        tree.add_relay(parent=mid.addr)
+        for mid in mids for _ in range(LEAVES_PER_MID)
+    ]
+    L = len(leaves)
+
+    def scripted(handle, frame):
+        keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT,
+                box_game.INPUT_DOWN, 0]
+        return np.uint8(keys[(frame // 3 + handle) % len(keys)])
+
+    peers = []
+    for me in range(P):
+        rsock = RelaySocket(
+            tap(net.socket(("peer", me)), f"peer{me}", me),
+            [root.addr],
+            session_id=1, peer_id=me, clock=lambda: net.now,
+        )
+        builder = (
+            SessionBuilder(box_game.INPUT_SPEC)
+            .with_num_players(P)
+            .with_max_prediction_window(MAXPRED)
+        )
+        for h in range(P):
+            builder.add_player(
+                PlayerType.local() if h == me
+                else PlayerType.remote(peer_addr(h)), h,
+            )
+        session = builder.start_p2p_session(rsock, clock=lambda: net.now)
+        runner = RollbackRunner(
+            box_game.make_schedule(), box_game.make_world(P, device=_dev()).commit(),
+            max_prediction=MAXPRED, num_players=P,
+            input_spec=box_game.INPUT_SPEC, device=_dev(),
+        )
+        runner.warmup()
+        peers.append((session, runner))
+    pub = StatePublisher(peers[0][0], peers[0][1], socket=peers[0][0].socket)
+    codec = StateCodec.for_state(box_game.make_world(P, device=_dev()).commit())
+    specs = [
+        StreamSpectator(
+            net.socket(("spec", s)), relays=[leaves[s % L].addr],
+            session_id=1, codec=codec, clock=lambda: net.now,
+        )
+        for s in range(S)
+    ]
+    # Witness spectators pinned to the ROOT: their lag is the in-harness
+    # single-relay baseline, so added_lag_frames_per_tier subtracts the
+    # harness's own per-tick delivery quantization instead of blaming the
+    # tree for it.
+    W = 8
+    witnesses = [
+        StreamSpectator(
+            net.socket(("wit", w)), relays=[root.addr],
+            session_id=1, codec=codec, clock=lambda: net.now,
+        )
+        for w in range(W)
+    ]
+    link_nodes = [n for n in tree.nodes.values() if n.link is not None]
+    inner = [root] + mids
+
+    def timed_pump(now):
+        """tree.pump() unrolled so the leaf tier (the O(S) fan-out work)
+        is timed separately from the links and the inner relays (whose
+        cost must stay O(links) regardless of S)."""
+        for n in link_nodes:
+            n.link.pump(now)
+        t0 = time.perf_counter()
+        for n in inner:
+            n.server.pump(now)
+        t1 = time.perf_counter()
+        for n in leaves:
+            n.server.pump(now)
+        t2 = time.perf_counter()
+        return (t1 - t0) * 1000.0, (t2 - t1) * 1000.0
+
+    inner_ms_all, leaf_ms_base, leaf_ms_full = [], [], []
+    lag_samples, root_lag_samples = [], []
+    tier_lag_samples = {}
+    for tick in range(frames):
+        net.advance(_DT)
+        for session, runner in peers:
+            session.poll_remote_clients()
+            if session.current_state() != SessionState.RUNNING:
+                continue
+            for h in session.local_player_handles():
+                session.add_local_input(h, scripted(h, session.current_frame))
+            try:
+                runner.handle_requests(session.advance_frame(), session)
+            except PredictionThreshold:
+                pass
+        pub.publish(net.now)
+        # Pump AFTER publish (same reasoning as _relay_fanout_case): a
+        # deployed tree pumps continuously, far faster than the frame
+        # loop — pumping before publish would quantize one whole extra
+        # frame of lag into every tier sample.
+        inner_ms, leaf_ms = timed_pump(net.now)
+        inner_ms_all.append(inner_ms)
+        (leaf_ms_base if tick < warm else leaf_ms_full).append(leaf_ms)
+        if tick >= warm:
+            for spec in specs:
+                spec.poll(net.now)
+            for wit in witnesses:
+                wit.poll(net.now)
+        if tick >= warm + settle:
+            head = pub._prev_frame
+            lag_samples.extend(max(0, head - s.current_frame) for s in specs)
+            root_lag_samples.extend(
+                max(0, head - w.current_frame) for w in witnesses
+            )
+            for tier, lagf in tree.tier_lag().items():
+                tier_lag_samples.setdefault(tier, []).append(lagf)
+
+    # Drain: the match is over, so the stream head is fixed — every
+    # spectator must converge to the publisher's exact bytes or it is a
+    # desync, full stop.
+    head = pub._prev_frame
+    everyone = specs + witnesses
+    for _ in range(240):
+        net.advance(_DT)
+        timed_pump(net.now)
+        for spec in everyone:
+            spec.poll(net.now)
+        if all(s.current_frame == head for s in everyone):
+            break
+    desyncs = sum(
+        1 for s in everyone
+        if s.current_frame != head or s.state_bytes != pub._prev
+    )
+
+    lag = np.asarray(lag_samples, dtype=np.float64)
+    lag_p50 = float(np.percentile(lag, 50))
+    lag_p99 = float(np.percentile(lag, 99))
+    root_lag_p99 = float(
+        np.percentile(np.asarray(root_lag_samples, dtype=np.float64), 99)
+    )
+    depth = tree.depth()
+    # Added lag per tier: leaf-spectator p99 minus the root-witness p99
+    # (the single-relay baseline under the SAME per-tick delivery
+    # quantization), split across the tiers the stream crossed.
+    added_lag_per_tier = max(0.0, (lag_p99 - root_lag_p99) / max(depth, 1))
+    # Per-tier contiguous-frontier backlog (0 unless a link falls behind
+    # its parent's head) — a second witness that the tiers keep up.
+    tier_backlog_p99 = max(
+        (
+            float(np.percentile(np.asarray(v, dtype=np.float64), 99))
+            for v in tier_lag_samples.values()
+        ),
+        default=0.0,
+    )
+    fanout_secs = (frames - warm) * _DT
+    leaf_bytes = sum(
+        relay_metrics[leaf.addr].counters.get("fanout_bytes_sent", 0.0)
+        for leaf in leaves
+    )
+    bytes_per_spec_sec = leaf_bytes / S / fanout_secs
+    # Incremental leaf pump cost per spectator (the fan-out window minus
+    # the 0-subscriber baseline, split across S) -> per-leaf-core capacity
+    # at the 60 Hz budget; the tree multiplies that across its leaf
+    # processes while the inner tiers stay O(links).
+    per_spec_ms = max(
+        (float(np.mean(leaf_ms_full)) - float(np.mean(leaf_ms_base))) / S,
+        1e-4,
+    )
+    within_bound = (
+        root_lag_p99 <= 2.0  # the delivery plane itself keeps up
+        and added_lag_per_tier <= 2.0  # and each tier adds <= 2 frames
+        and tier_backlog_p99 <= 2.0
+    )
+    single_relay_capacity = (
+        int((1000.0 * _DT) / per_spec_ms) if within_bound else S // L
+    )
+    tree_capacity = single_relay_capacity * L
+    rows = tree.topology_rows()
+    cache_hits = sum(r["cache_hits"] for r in rows)
+    cache_misses = sum(r["cache_misses"] for r in rows)
+    cache_hit_rate = (
+        cache_hits / (cache_hits + cache_misses)
+        if cache_hits + cache_misses else 0.0
+    )
+    if td is not None:
+        from bevy_ggrs_tpu_torch.obs import merge_traces
+
+        trace_paths, prov_paths = [], []
+        for addr, tracer in tracers.items():
+            p = os.path.join(td, f"relay{addr[1]}_trace.json")
+            tracer.export_perfetto(p)
+            trace_paths.append(p)
+        for log in sidecars:
+            p = os.path.join(td, f"{log.component}_provenance.jsonl")
+            log.export_jsonl(p)
+            prov_paths.append(p)
+        merge_traces(
+            trace_paths, prov_paths,
+            path=os.path.join(td, "merged_trace.json"),
+        )
+    return _entry(
+        "relay_tree_1k",
+        max(float(np.percentile(np.asarray(leaf_ms_full), 99)), 1e-3),
+        MAXPRED, 1,
+        rtt_ms=-1.0,
+        spectators=S,
+        tree_depth=depth,
+        leaf_relays=L,
+        desyncs=desyncs,
+        bytes_per_spectator_per_sec=round(bytes_per_spec_sec, 1),
+        spectator_lag_p50_frames=round(lag_p50, 2),
+        spectator_lag_p99_frames=round(lag_p99, 2),
+        single_relay_lag_p99_frames=round(root_lag_p99, 2),
+        added_lag_frames_per_tier=round(added_lag_per_tier, 2),
+        tier_backlog_p99_frames=round(tier_backlog_p99, 2),
+        spectators_per_core_at_2f_lag=single_relay_capacity,
+        tree_spectators_at_2f_lag=tree_capacity,
+        vs_single_relay_capacity=round(
+            tree_capacity / max(single_relay_capacity, 1), 2
+        ),
+        keyframe_cache_hit_rate=round(cache_hit_rate, 4),
+        keyframe_cache_hits=int(cache_hits),
+        keyframe_cache_misses=int(cache_misses),
+        leaf_pump_per_spectator_us=round(per_spec_ms * 1000.0, 2),
+        inner_pump_ms_mean=round(float(np.mean(inner_ms_all)), 4),
+        tier_keyframes_synthesized=int(sum(
+            m.counters.get("tier_keyframes_synthesized", 0)
+            for m in relay_metrics.values()
+        )),
+        published_frames=int(pub.published_frames),
+        notes=(
+            "depth-2 tree, host-CPU delivery tier; per-leaf capacity = "
+            "16.7ms budget / incremental leaf pump cost per spectator, "
+            "tree capacity = leaf_relays x per-leaf (each leaf is an "
+            "independent process; inner tiers measured O(links)), gated "
+            "on root-witness p99 <= 2 frames and <= 2 added frames per "
+            f"tier (leaf p99 {lag_p99:.2f}f, root p99 {root_lag_p99:.2f}f, "
+            f"added/tier {added_lag_per_tier:.2f}f"
+            + ("" if within_bound else
+               " — BOUND EXCEEDED, reporting measured S/leaf instead")
+            + ")"
+        ),
+    )
+
+
+def _fleet_migrate_case(S: int) -> dict:
+    import shutil
+    import tempfile
+
+    from bevy_ggrs_tpu_torch.fleet import FleetBalancer
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.serve import MatchServer
+    from bevy_ggrs_tpu_torch.session.builder import SessionBuilder
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+    from bevy_ggrs_tpu_torch.utils import build_cache
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P, MAXPRED, B, F = 2, 4, 8, 3
+    # Capacity leaves headroom above S/2 so the survivor can absorb the
+    # dead server's whole checkpoint on top of its own matches plus the
+    # measured migrations (32 home + 1 warm + 8 migrated + 24 failover).
+    CAP, GROUPS = S + 4, 4
+    RAMP, N_MIG, MIG_AT, MIG_EVERY = 30, 8, 40, 10
+    kill_at = 200
+    ticks = int(os.environ.get("GGRS_FLEET_TICKS", "290") or "290")
+    ticks = max(ticks, 290)
+    rtt0 = _host_device_rtt_ms()
+    build_cache.install_compile_listeners()
+
+    def make_synctest():
+        return (
+            SessionBuilder(box_game.INPUT_SPEC)
+            .with_num_players(P)
+            .with_max_prediction_window(MAXPRED)
+            .with_check_distance(2)
+            .start_synctest_session()
+        )
+
+    def inputs_for(seed):
+        def f(frame, handle):
+            return np.uint8((frame * 3 + handle * 5 + seed) % 16)
+
+        return f
+
+    ckpt_root = tempfile.mkdtemp(prefix="ggrs_fleet_migrate_")
+    net = LoopbackNetwork()
+    metrics = Metrics()
+    bal = FleetBalancer(
+        socket=net.socket(("fleet", "bal")),
+        addr=("fleet", "bal"),
+        heartbeat_timeout=0.5,
+        clock=lambda: net.now,
+        metrics=metrics,
+    )
+
+    def build(k):
+        server = MatchServer(
+            box_game.make_schedule(), box_game.make_world(P, device=_dev()).commit(),
+            MAXPRED, P, box_game.INPUT_SPEC,
+            num_branches=B, spec_frames=F, capacity=CAP,
+            stagger_groups=GROUPS, metrics=metrics,
+            clock=lambda: net.now,
+            checkpoint_dir=os.path.join(ckpt_root, f"srv{k}"),
+            checkpoint_interval=60, checkpoint_keep=3,
+            server_id=k, fleet_socket=net.socket(("hb", k)),
+            fleet_addr=("fleet", "bal"), heartbeat_interval=8,
+            device=_dev(),
+        )
+        server.warmup()
+        bal.register(
+            k, server, addr=("mig", k), sock=net.socket(("mig", k)),
+            checkpoint_dir=os.path.join(ckpt_root, f"srv{k}"),
+        )
+        return server
+
+    try:
+        servers = {k: build(k) for k in range(2)}
+        for m in range(S):
+            bal.place_match(
+                m, make_synctest(), inputs_for(m), server_id=m % 2
+            )
+        # The warm dummy lives on the survivor so server 0's checkpoints
+        # hold only real matches.
+        WARM = 10_000
+        bal.place_match(
+            WARM, make_synctest(), inputs_for(WARM), server_id=1
+        )
+        # Ramp, then warm the churn paths once per server (suspend ->
+        # wire -> readmit round-trip; first-use tracing is warmup's
+        # business, same contract the fleet tests pin) before the
+        # fault-churn compile segment begins.
+        for _ in range(RAMP):
+            net.advance(1.0 / 60.0)
+            for srv in servers.values():
+                srv.run_frame()
+            bal.pump()
+        for warm_dst in (0, 1):
+            warm = bal.begin_migration(WARM, dst_id=warm_dst)
+            net.advance(0.0)
+            assert bal.complete_migration(warm) is not None
+        compiles_base = build_cache.compile_counters()["backend_compiles"]
+
+        times = []  # (tick_ms, in_flight, post_kill)
+        stalls = []
+        per_class = {}
+        pending = None
+        mig_iter = iter(range(N_MIG))
+        next_mig = next(mig_iter)
+        pre_kill = {}
+        detected_tick = None
+        recovered = []
+        for t in range(RAMP, ticks):
+            net.advance(1.0 / 60.0)
+            if t == kill_at:
+                # Server loss: the process is gone. Its matches' frames
+                # are snapshotted for the recovery-debt ledger; the
+                # balancer only learns through heartbeat silence.
+                pre_kill = {
+                    m_id: servers[0].groups[pl.handle.group]
+                    .slots[pl.handle.slot].frame
+                    for m_id, pl in bal.placements.items()
+                    if pl.server_id == 0
+                }
+                del servers[0]
+            t0 = time.perf_counter()
+            for srv in servers.values():
+                srv.run_frame()
+            _sync()
+            times.append(
+                ((time.perf_counter() - t0) * 1000.0,
+                 pending is not None, t >= kill_at)
+            )
+            if pending is not None:
+                mig, ready_at = pending
+                # The balancer's control loop only reaches the
+                # completion step every few ticks: the stall each match
+                # sees is frames served by the destination in between.
+                if t >= ready_at and bal.complete_migration(mig) is not None:
+                    stalls.append(float(mig.stall_frames))
+                    pending = None
+            elif (next_mig is not None and t >= MIG_AT
+                  and t == MIG_AT + next_mig * MIG_EVERY):
+                mig = bal.begin_migration(2 * next_mig, dst_id=1)
+                pending = (mig, t + 1 + (next_mig % 3))
+                next_mig = next(mig_iter, None)
+            bal.pump()
+            for dead in bal.check():
+                detected_tick = t
+                recovered = bal.failover(dead)
+                survivor = bal.members[1].server
+                down = detected_tick - kill_at
+                per_class["server_loss"] = [
+                    float(pre_kill[m_id]
+                          - survivor.groups[h.group].slots[h.slot].frame
+                          + down)
+                    for m_id, _sid, h in recovered
+                ]
+        churn_recompiles = (
+            build_cache.compile_counters()["backend_compiles"] - compiles_base
+        )
+
+        survivor = bal.members[1].server
+        healthy = [ms for ms, mig, post in times if not mig and not post]
+        stalled = [ms for ms, mig, _ in times if mig]
+        healthy_p50 = float(np.percentile(healthy, 50))
+        all_on_survivor = all(
+            pl.server_id == 1 for pl in bal.placements.values()
+        )
+        recovery_cols = {}
+        for reason, vals in sorted(per_class.items()):
+            recovery_cols[f"recovery_p50_frames_{reason}"] = float(
+                np.percentile(vals, 50)
+            )
+            recovery_cols[f"recovery_p99_frames_{reason}"] = float(
+                np.percentile(vals, 99)
+            )
+            recovery_cols[f"recovery_events_{reason}"] = len(vals)
+        td = _bench_trace_dir(f"fleet_migrate_S{S}")
+        if td is not None:
+            survivor.export_telemetry(td, prefix=f"fleet_migrate_S{S}")
+        return _entry(
+            f"fleet_migrate_S{S}",
+            healthy_p50, S, B,
+            rtt_ms=rtt0,
+            sessions=S,
+            model="box_game",
+            servers=2,
+            ticks=len(times),
+            tick_p50_healthy_ms=round(healthy_p50, 4),
+            tick_p50_migrating_ms=round(
+                float(np.percentile(stalled, 50)), 4
+            ) if stalled else None,
+            migrations_measured=len(stalls),
+            migrations_completed=int(bal.migrations_completed),
+            migrations_aborted=int(bal.migrations_aborted),
+            migration_stall_p50_frames=float(np.percentile(stalls, 50)),
+            migration_stall_p99_frames=float(np.percentile(stalls, 99)),
+            failover_detect_ticks=(
+                int(detected_tick - kill_at)
+                if detected_tick is not None else None
+            ),
+            failovers=int(bal.failovers),
+            matches_recovered=int(bal.matches_recovered),
+            matches_lost=int(bal.matches_lost),
+            all_matches_on_survivor=bool(all_on_survivor),
+            survivor_cache_size=int(survivor.cache_size()),
+            churn_recompiles=int(churn_recompiles),
+            **recovery_cols,
+            notes=(
+                f"{len(stalls)} live migrations (drain -> type 18-21 "
+                "wire -> digest-guarded readmit) under load, then a "
+                "server loss at tick 200 detected by 0.5 s heartbeat "
+                "silence and failed over from the last checkpoint "
+                "(interval 60f) onto the survivor; migration stall is "
+                "destination frames served between drain and readmit "
+                "(bounded by the balancer control-loop cadence); "
+                "server_loss recovery is checkpoint replay debt + "
+                "detection downtime; gated on matches_lost == 0 and "
+                "churn_recompiles == 0 (warm round-trip segmented out, "
+                "same contract tests/test_torch_fleet.py pins bitwise)"
+            ),
+        )
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def _front_door_case(S: int) -> dict:
+    """Saturation ladder at the fleet's front door: an open-loop
+    TrafficPlan steps its Poisson arrival rate until the admission-p99
+    or frame-deadline window SLO burns; the knee is the last step's
+    sustained admissions/sec with zero slot faults, zero drops, and zero
+    churn recompiles. Every admission carries an AdmissionTrace, so the
+    row decomposes the path (matchmake / place / slot_warm / admit /
+    first_frame) plus the per-slot host work split (branch build vs
+    argument assembly) the dispatch loop measures."""
+    from bevy_ggrs_tpu_torch.fleet import FleetBalancer, Matchmaker, TrafficPlan
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.obs.timeseries import TimeSeries
+    from bevy_ggrs_tpu_torch.serve import MatchServer
+    from bevy_ggrs_tpu_torch.session.builder import SessionBuilder
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+    from bevy_ggrs_tpu_torch.utils import build_cache
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P, MAXPRED, B, F = 2, 4, 8, 3
+    SERVERS, GROUPS = 2, 4
+    CAP = S // SERVERS
+    rates = [
+        float(r) for r in os.environ.get(
+            "GGRS_FRONT_DOOR_RATES", "2,4,8,16,32,64"
+        ).split(",")
+    ]
+    step_frames = int(os.environ.get("GGRS_FRONT_DOOR_STEP_FRAMES", "240"))
+    life_frames = int(os.environ.get("GGRS_FRONT_DOOR_LIFE", "180"))
+    rtt0 = _host_device_rtt_ms()
+    build_cache.install_compile_listeners()
+
+    # GGRS_HOST_PROFILE=1 arms the span-aware sampling profiler around
+    # the ladder (started after warmup so compile time doesn't pollute
+    # the steady-state flame). One profiler covers the whole in-process
+    # fleet; server 0 carries it so the ops report gains the flame
+    # section and export_telemetry writes the folded/counter artifacts.
+    profiler = None
+    if os.environ.get("GGRS_HOST_PROFILE", "") not in ("", "0", "false"):
+        from bevy_ggrs_tpu_torch.obs.profiler import HostProfiler
+
+        profiler = HostProfiler(
+            seed=S, pid=0, process_name=f"front_door_S{S}"
+        )
+
+    def make_synctest():
+        return (
+            SessionBuilder(box_game.INPUT_SPEC)
+            .with_num_players(P)
+            .with_max_prediction_window(MAXPRED)
+            .with_check_distance(2)
+            .start_synctest_session()
+        )
+
+    def inputs_for(seed):
+        def f(frame, handle):
+            return np.uint8((frame * 3 + handle * 5 + seed) % 16)
+
+        return f
+
+    net = LoopbackNetwork()
+    metrics = Metrics()
+    bal = FleetBalancer(metrics=Metrics())
+    tseries = {}
+    servers = {}
+    for k in range(SERVERS):
+        tseries[k] = TimeSeries()
+        srv = MatchServer(
+            box_game.make_schedule(), box_game.make_world(P, device=_dev()).commit(),
+            MAXPRED, P, box_game.INPUT_SPEC,
+            num_branches=B, spec_frames=F, capacity=CAP,
+            stagger_groups=GROUPS, metrics=metrics,
+            timeseries=tseries[k], clock=lambda: net.now, server_id=k,
+            device=_dev(),
+            **(
+                {"profiler": profiler}
+                if (profiler is not None and k == 0) else {}
+            ),
+        )
+        srv.warmup()
+        bal.register(k, srv)
+        servers[k] = srv
+    FPS_DT = 1.0 / 60.0
+
+    # Host/device attribution over the measured ladder (armed after
+    # warmup): run_frame returns at enqueue — everything inside it is
+    # host work (session polls, the batched-native staging calls, admit
+    # drain) — and the block_until_ready is the residual device wait.
+    # The verdict column is the acceptance bar: the batched data plane
+    # must move the front door OFF host_bound.
+    probe = None
+
+    def serve_frame():
+        net.advance(FPS_DT)
+        for srv in servers.values():
+            if probe is None:
+                srv.run_frame()
+                _sync()
+            else:
+                with probe.host():
+                    srv.run_frame()
+                with probe.device_wait():
+                    _sync()
+
+    # Warm the full admission path once per (server, group): enqueue ->
+    # drain -> first dispatch -> retire. Steady-state churn must not
+    # compile (same contract as the fleet-migrate segment).
+    warm_ids = []
+    for k in range(SERVERS):
+        for g in range(GROUPS):
+            wid = 100_000 + k * GROUPS + g
+            bal.place_match(
+                wid, make_synctest(), inputs_for(wid),
+                server_id=k, queue=True,
+            )
+            warm_ids.append(wid)
+    for _ in range(8):
+        serve_frame()
+    for wid in warm_ids:
+        pl = bal.placements.pop(wid)
+        servers[pl.server_id].retire_match(pl.handle)
+    for _ in range(4):
+        serve_frame()
+    compiles_base = build_cache.compile_counters()["backend_compiles"]
+    faults_base = metrics.counters.get("slot_faults", 0)
+    from bevy_ggrs_tpu_torch.obs.attribution import AttributionProbe
+
+    probe = AttributionProbe()
+    # On the CPU executor calls are nested device_wait windows: there a
+    # dispatch runs the computation itself, so without this the device
+    # execution absorbed by group N+1's enqueue would be billed as host
+    # work and the verdict would read host_bound on any CPU box. On the
+    # card a dispatch returns at enqueue, and a nested window would bill
+    # the eager enqueue of the tick's launches as device time: the frame's
+    # closing synchronize alone is the device wait there.
+    if not _cuda():
+        for srv in servers.values():
+            for core in srv.groups:
+                core.attribution = probe
+    if profiler is not None:
+        profiler.start()
+
+    def merged_window(name):
+        vals = []
+        for ts in tseries.values():
+            w = ts.window_for(name)
+            if w is not None:
+                vals.extend(w.window_values())
+        return vals
+
+    def retire(mm, admitted_at, mid):
+        pl = bal.placements.pop(mid, None)
+        if pl is not None:
+            servers[pl.server_id].retire_match(pl.handle)
+        mm.live.pop(mid, None)
+        admitted_at.pop(mid, None)
+
+    ladder = []
+    knee = None
+    next_id = 0
+    frames_total = 12
+    admitted_at = {}
+    frame_no = 0  # global frame counter: lifetimes span step boundaries
+    for step, rate in enumerate(rates):
+        plan = TrafficPlan.generate(
+            seed=9000 + step, duration=step_frames / 60.0,
+            match_rate=rate, num_players=P, max_join_delay=0.05,
+            first_match_id=next_id,
+        )
+        next_id += len(plan.arrivals()) + 1
+        mm = Matchmaker(
+            bal, plan,
+            make_session=lambda a: make_synctest(),
+            make_inputs=lambda a: inputs_for(a.input_seed % 64),
+            # Wall clock for the traces: stage times are real host work
+            # even though the serving loop runs on the virtual clock.
+            clock=time.perf_counter, metrics=metrics,
+        )
+        completed0 = sum(s.admissions_completed for s in servers.values())
+        t_step0 = net.now
+        pages = 0
+        for _ in range(step_frames):
+            frame_no += 1
+            mm.pump(net.now - t_step0)
+            serve_frame()
+            # Lifetime retirement keeps occupancy proportional to the
+            # offered rate (arrivals are the measured churn, not slots
+            # leaking until the fleet is full).
+            for mid in bal.placements:
+                if mid not in admitted_at:
+                    admitted_at[mid] = frame_no
+            for mid in [
+                m for m, t0 in admitted_at.items()
+                if frame_no - t0 >= life_frames
+            ]:
+                retire(mm, admitted_at, mid)
+            for srv in servers.values():
+                if "page" in srv.front_door_levels.values():
+                    pages += 1
+        completed = (
+            sum(s.admissions_completed for s in servers.values())
+            - completed0
+        )
+        frames_total += step_frames
+        adm = merged_window("admission_ms")
+        step_row = {
+            "rate_per_sec": rate,
+            "arrivals": mm.arrivals_seen,
+            "admissions_completed": completed,
+            "sustained_admissions_per_sec": round(
+                completed / (step_frames / 60.0), 3
+            ),
+            "rejected": mm.admissions_rejected,
+            "pages": pages,
+            "admission_p50_ms": round(
+                float(np.percentile(adm, 50)), 4
+            ) if adm else None,
+            "admission_p99_ms": round(
+                float(np.percentile(adm, 99)), 4
+            ) if adm else None,
+            "live_matches": len(bal.placements),
+        }
+        healthy = (
+            pages == 0 and mm.admissions_rejected == 0
+            and metrics.counters.get("slot_faults", 0) == faults_base
+        )
+        step_row["healthy"] = bool(healthy)
+        ladder.append(step_row)
+        if healthy:
+            knee = step_row
+        else:
+            break  # the ladder found its burn point
+
+    if profiler is not None:
+        profiler.stop()
+    probe.snapshot_compiles()
+    churn_recompiles = (
+        build_cache.compile_counters()["backend_compiles"] - compiles_base
+    )
+    desyncs = metrics.counters.get("slot_faults", 0) - faults_base
+    stage_cols = {}
+    for stage in (
+        "matchmake", "place", "slot_warm", "admit", "first_frame"
+    ):
+        vals = merged_window(f"admission_{stage}_ms")
+        if vals:
+            stage_cols[f"stage_{stage}_p50_ms"] = round(
+                float(np.percentile(vals, 50)), 4
+            )
+            stage_cols[f"stage_{stage}_p99_ms"] = round(
+                float(np.percentile(vals, 99)), 4
+            )
+    for name, col in (
+        ("serve_branch_build_ms", "branch_build"),
+        ("serve_arg_assembly_ms", "arg_assembly"),
+    ):
+        vals = merged_window(name)
+        if vals:
+            stage_cols[f"{col}_p50_ms"] = round(
+                float(np.percentile(vals, 50)), 4
+            )
+            stage_cols[f"{col}_p99_ms"] = round(
+                float(np.percentile(vals, 99)), 4
+            )
+    # Host/device attribution over the whole measured ladder. One
+    # probe "dispatch" is one server-frame (run_frame returns at
+    # enqueue), so attr_host_ms is per-server-frame host cost. The
+    # verdict is what the bench gate checks: the batched-native data
+    # plane has to keep the front door off "host_bound".
+    try:
+        exec_cost = servers[0]._exec.cost() or None
+    except Exception:
+        exec_cost = None
+    attribution = probe.result(lanes=CAP, cost=exec_cost)
+    # The fleet's frame as the ladder left it (its live matches still
+    # served): wall time with a synchronize, the card's busy time and its
+    # costliest kernels (torch.profiler), and the batched ticks a
+    # server-frame dispatches. These say where a frame's time goes.
+    frame_ms = merged_window("frame_ms")
+    levels = {k: dict(srv.front_door_levels) for k, srv in servers.items()}
+    for srv in servers.values():
+        for core in srv.groups:
+            core.attribution = None
+
+    def fleet_frame():
+        net.advance(FPS_DT)
+        for srv in servers.values():
+            srv.run_frame()
+
+    dispatches0 = sum(c.device_dispatches_total
+                      for srv in servers.values() for c in srv.groups)
+    frame_wall_ms, _ = wall_stats(fleet_frame)
+    dispatched = sum(c.device_dispatches_total
+                     for srv in servers.values() for c in srv.groups) - dispatches0
+    frame_busy_ms, frame_top = device_ms(fleet_frame)
+    frame_cols = dict(
+        fleet_frame_wall_ms=round(frame_wall_ms, 4),
+        fleet_frame_device_busy_ms=(
+            round(frame_busy_ms, 4) if frame_busy_ms is not None else None),
+        fleet_frame_top_kernels_ms={k: round(v, 4) for k, v in frame_top.items()},
+        ticks_per_server_frame=round(
+            dispatched / (2 * ROLLOUT_CALLS + 1) / SERVERS, 3),
+        server_frame_p50_ms=round(float(np.percentile(frame_ms, 50)), 4),
+        server_frame_p99_ms=round(float(np.percentile(frame_ms, 99)), 4),
+        front_door_levels=levels,
+    )
+    if knee is None:
+        print("front_door: diagnostics " + json.dumps(dict(
+            ladder=ladder, live_matches=len(bal.placements), **frame_cols,
+            **stage_cols, **attribution)), file=sys.stderr)
+        raise SystemExit(
+            "front_door: no healthy step — the first rate already burns"
+        )
+    # The row's compact profile blob: per-stage self-time tables the
+    # bench gate diffs for regression attribution, plus the attribution
+    # fractions the front-door acceptance bar checks.
+    prof_cols = {}
+    if profiler is not None:
+        prof_cols["profile"] = profiler.profile_blob()
+        prof_cols["profile_attributed_frac"] = round(
+            profiler.attributed_frac(), 4
+        )
+        prof_cols["profile_admission_attributed_frac"] = round(
+            profiler.attributed_frac("admission_"), 4
+        )
+    td = _bench_trace_dir(f"front_door_S{S}")
+    if td is not None:
+        for k, srv in servers.items():
+            srv.export_telemetry(td, prefix=f"front_door_srv{k}")
+    saturated = len(ladder) > 0 and not ladder[-1]["healthy"]
+    return _entry(
+        f"front_door_S{S}",
+        max(knee["admission_p99_ms"] or 0.001, 0.001),
+        frames_total, B,
+        rtt_ms=rtt0,
+        sessions=S,
+        model="box_game",
+        servers=SERVERS,
+        knee_admissions_per_sec=knee["sustained_admissions_per_sec"],
+        knee_offered_rate_per_sec=knee["rate_per_sec"],
+        knee_live_matches=knee["live_matches"],
+        admission_p50_ms=knee["admission_p50_ms"],
+        admission_p99_ms=knee["admission_p99_ms"],
+        ladder_saturated=bool(saturated),
+        ladder=ladder,
+        desyncs=int(desyncs),
+        admissions_rejected_at_knee=int(knee["rejected"]),
+        churn_recompiles=int(churn_recompiles),
+        **stage_cols,
+        **attribution,
+        **frame_cols,
+        **prof_cols,
+        notes=(
+            "open-loop Poisson arrival ladder through the balancer's "
+            "paging-aware placement and the admit queue (budget-bounded "
+            "drain off the frame-critical path); each arrival carries an "
+            "AdmissionTrace (wall-clock stages on a virtual-clock "
+            "serving loop); knee = last step with zero window-SLO pages "
+            "(admission p99 + frame deadline), zero drops, zero slot "
+            "faults; per-stage and host-work-decomposition percentiles "
+            "are exact windowed reads from the online time-series "
+            "pipeline; gated on desyncs == 0, churn_recompiles == 0, "
+            "and attr_verdict != host_bound (host/device attribution "
+            "over every measured server-frame)"
+        ),
+    )
+
+
+def _fleet_autoscale_case(N: int, chaos: bool = False) -> dict:
+    """One full elasticity arc on the SUBPROCESS fleet (fleet/proc.py)
+    under the autopilot policy (fleet/autopilot.py): traffic pushes
+    occupancy over the high watermark -> policy spawns server N-1 (the
+    measured scale-up latency is spawn -> first heartbeat, i.e. a whole
+    child boot: torch and CUDA start, kernel libraries found built on
+    disk, server warmup); an armed
+    burn window on one child pages its SLO -> the policy evacuates its
+    matches over the type-18-21 wire BEFORE the watchdog fences
+    (preemption lead = first observed page -> migration landed, with the
+    donor still at zero fences/quarantines); a traffic drop crosses the
+    low watermark -> drain-pack-retire (the packing stalls are the
+    drain-pack migration stall frames). Gated on matches_lost == 0 and
+    fleet-wide churn_recompiles == 0 after steady state — every
+    migration must land on the destination without a kernel build or a
+    checksum-layout preparation (``utils/build_cache.py``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from bevy_ggrs_tpu_torch.fleet.autopilot import (
+        AutopilotConfig,
+        FleetAutopilot,
+        verify_ledger,
+    )
+    from bevy_ggrs_tpu_torch.fleet.proc import ProcFleet
+    from bevy_ggrs_tpu_torch.fleet.traffic import TrafficPlan
+
+    base = {
+        "fps": 0,  # free-run: arc wall time is compute-bound, not paced
+        "heartbeat_interval": 8,
+        "status_interval": 20,
+        "checkpoint_interval": 40,
+        "device": _dev().type,
+    }
+    rtt0 = _host_device_rtt_ms()
+    _prebuild_for_children()
+    case = f"fleet_autoscale_N{N}" + ("_chaos" if chaos else "")
+    root = tempfile.mkdtemp(prefix="ggrs_fleet_autoscale_")
+    td = _bench_trace_dir(case)
+    chaos_plan = None
+    if chaos:
+        from bevy_ggrs_tpu_torch.chaos.plan import (
+            ChaosPlan,
+            Corrupt,
+            Duplicate,
+            LossBurst,
+            Partition,
+            Reorder,
+        )
+
+        chaos_plan = ChaosPlan(
+            seed=11,
+            directives=(
+                LossBurst(0.0, 1e9, 0.15),
+                Duplicate(0.0, 1e9, 0.10),
+                Corrupt(0.0, 1e9, 0.05),
+                Reorder(0.0, 1e9, 0.10, delay=0.05),
+                # Asymmetric: server 0's sends go dark while it still
+                # hears the world — sized under the death threshold so
+                # the suspect path must hold, not failover.
+                Partition(12.0, 18.0, src=0),
+            ),
+        )
+    fleet = ProcFleet(
+        root, base_config=base, heartbeat_timeout=8.0, obs_dir=td,
+        chaos_plan=chaos_plan,
+        # Chaos arc: widen the wedged-child backstop. A sibling's cold
+        # boot can starve a 1-core host for >20s, and with the
+        # default 3x factor that crosses the dead threshold — declaring
+        # a live child dead is exactly what the chaos gate forbids. The
+        # suspect path (process probe) still fires at the normal budget.
+        suspect_factor=8 if chaos else 3,
+    )
+    cfg = AutopilotConfig(
+        high_watermark=0.8, low_watermark=0.3, confirm_beats=3,
+        preempt_confirm=2, preempt_batch=1, cooldown_scale_ticks=40,
+        cooldown_preempt_ticks=20, min_servers=2, max_servers=N + 1,
+    )
+    ap = FleetAutopilot(fleet, config=cfg)
+    tickbox = {"t": 0}
+
+    def tick():
+        ap.step(tickbox["t"])
+        tickbox["t"] += 1
+        for dead in fleet.check():
+            fleet.failover(dead, preferred=ap.backups)
+
+    def pump_until(pred, timeout, msg):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            fleet.pump()
+            tick()
+            if pred():
+                return
+            time.sleep(0.03)
+        raise SystemExit(f"fleet_autoscale: timed out waiting for {msg}")
+
+    def match_frames(sid):
+        st = fleet.members[sid].status or {}
+        return {int(k): v for k, v in st.get("matches", {}).items()}
+
+    failed = True
+    try:
+        for _ in range(2):
+            fleet.spawn_server(wait_ready=True)
+
+        # Occupancy ramp: paced TrafficPlan arrivals over the high
+        # watermark; reconcile heartbeat-lagged bounces until every
+        # arrival genuinely serves somewhere.
+        plan = TrafficPlan.generate(
+            seed=23, duration=10.0, match_rate=3.0, num_players=2
+        )
+        arrivals = plan.arrivals()[:7]
+        t0 = time.time()
+        horizon = max(a.at for a in arrivals) or 1.0
+        pending = list(arrivals)
+        while pending:
+            fleet.pump()
+            tick()
+            elapsed = (time.time() - t0) * (horizon / 4.0)
+            while pending and pending[0].at <= elapsed:
+                fleet.admit(pending.pop(0).match_id)
+            time.sleep(0.03)
+
+        def all_admitted():
+            missing = [
+                a.match_id for a in arrivals
+                if a.match_id not in fleet.handles
+            ]
+            for mid in missing:
+                if mid not in fleet.book:
+                    fleet.admit(mid)
+            return not missing
+
+        pump_until(all_admitted, 60, "arrivals admitted")
+        pump_until(
+            lambda: len(fleet.samples()) == N, 240,
+            f"autopilot scale-up to N={N}",
+        )
+        new_sid = max(fleet.members)
+        scale_up_ms = [s * 1000.0 for s in fleet.scale_up_s]
+
+        # Steady state: warm the new server with real matches, then
+        # re-baseline every child's compile counter.
+        for mid in (100, 101):
+            fleet.admit(mid, new_sid)
+        pump_until(
+            lambda: match_frames(new_sid).get(100, 0) > 20, 120,
+            "new server serving",
+        )
+        for m in fleet.members.values():
+            m.process.send(cmd="rebase_compiles")
+
+        # Burn preemption: armed 1-in-3 deadline misses page the donor's
+        # SLO without ever fencing; measure first-page -> landed.
+        donor = 0
+        fleet.members[donor].process.send(
+            cmd="hiccup", every=3, ms=60.0, frames=400
+        )
+        paged_at = {}
+
+        def donor_paged():
+            if any(
+                rec["observation"]["servers"]
+                .get(str(donor), {}).get("pages", 0) >= 1
+                for rec in ap.ledger
+            ):
+                paged_at.setdefault("t", time.time())
+                return True
+            return False
+
+        pump_until(donor_paged, 120, "donor SLO paging")
+        stalls_before = len(fleet.stall_frames)
+        pump_until(
+            lambda: any(
+                e["event"] == "migrated" and e["src"] == donor
+                for e in fleet.events
+            ),
+            120, "burn-triggered preemptive migration",
+        )
+        preempt_latency_s = time.time() - paged_at["t"]
+        preempt_stalls = fleet.stall_frames[stalls_before:]
+        donor_info = fleet.members[donor].info
+        donor_status = fleet.members[donor].status or {}
+        preempt_landed_clean = bool(
+            donor_info.quarantined == 0
+            and donor_status.get("faults", 0) == 0
+            and donor_status.get("evictions", 0) == 0
+        )
+        # The burn window must be over before the fill-ins below: the
+        # donor's pages read 0 as soon as its last match is suspended for
+        # migration, while its armed window still has frames to run, and a
+        # fill-in admitted into them pages and is evacuated in turn. The
+        # snapshot of placements below must also see every match: one
+        # still moving is in none.
+        pump_until(
+            lambda: fleet.members[donor].info.pages == 0
+            and fleet.members[donor].hiccup_end is not None
+            and (fleet.members[donor].status or {}).get("frames", 0)
+            >= fleet.members[donor].hiccup_end
+            and len(fleet.placements()) == len(fleet.book),
+            180, "the burn window's end and its migrations landed",
+        )
+
+        # Traffic drop: guarantee every member hosts >= 1 match so the
+        # drained member must PACK before retiring, then abandon the
+        # rest; the policy drain-pack-retires the emptiest member.
+        # Fill-ins race the policy's own drain-pack decisions (a real
+        # hazard under chaos, where the arc runs long enough for the
+        # low watermark to fire early): a draining child refuses admits
+        # with a typed admit_failed that un-books the match, so skip
+        # drainers and let a refusal release the wait.
+        keep = {}
+        for mid, sid in sorted(fleet.placements().items()):
+            keep.setdefault(sid, mid)
+        for sid, sample in sorted(fleet.samples().items()):
+            if sid not in keep and not sample.draining:
+                fleet.admit(200 + sid, sid)
+                keep[sid] = 200 + sid
+        pump_until(
+            lambda: all(
+                m in fleet.handles or m not in fleet.book
+                for m in keep.values()
+            ),
+            120, "fill-in admissions serving",
+        )
+        for mid in sorted(fleet.placements()):
+            if mid not in keep.values():
+                fleet.retire_match(mid)
+        stalls_before = len(fleet.stall_frames)
+        pump_until(
+            lambda: any(e["event"] == "retired" for e in fleet.events),
+            240, "drain-pack-retire",
+        )
+        pack_stalls = fleet.stall_frames[stalls_before:]
+        # Packing to min_servers may take several retire cycles (each
+        # gated by the scale cooldown) — wait for the whole pack-down, then
+        # for every retired child to actually exit. A fleet the burn grew
+        # to N + 1 (the occupancy crossed the high watermark while the
+        # donor's matches moved) keeps one match a member: after one
+        # retirement its N + 1 matches fill N members' slots to the low
+        # watermark or above (4 in 12 at N = 3), where the policy holds,
+        # so the pack-down ends there. Either way no member left serving
+        # may host no match (the parent's book; heartbeats lag it).
+        def packed():
+            s = fleet.samples()
+            if any(x.draining for x in s.values()):
+                return False
+            active = sum(x.slots_active for x in s.values())
+            total = sum(x.slots_active + x.slots_free for x in s.values())
+            return len(s) == cfg.min_servers or (
+                total > 0 and active / total >= cfg.low_watermark)
+
+        pump_until(packed, 300, "packing down to min_servers or the low watermark")
+        hosted = set(fleet.book.values())
+        empty = sorted(sid for sid in fleet.samples() if sid not in hosted)
+        if empty:
+            raise SystemExit(
+                f"fleet_autoscale: members {empty} left empty and serving")
+        servers_after_pack = len(fleet.samples())
+        for victim in sorted(
+            {e["server"] for e in fleet.events if e["event"] == "retired"}
+        ):
+            pump_until(
+                lambda v=victim: not fleet.members[v].process.alive(), 120,
+                f"retired child {victim} exiting",
+            )
+
+        # Fleet-wide churn gate: a fresh status from every survivor must
+        # report zero compiles since the steady-state rebase. Capture
+        # over the live SERVING set — a just-retired child still has a
+        # pid here but its frame counter will never advance again.
+        frames_before = {
+            sid: (fleet.members[sid].status or {}).get("frames", 0)
+            for sid in fleet.samples()
+        }
+        pump_until(
+            lambda: all(
+                (fleet.members[sid].status or {}).get("frames", 0)
+                > frames_before[sid]
+                for sid in frames_before
+                if sid in fleet.samples()
+            ),
+            120, "fresh post-arc status",
+        )
+        churn_recompiles = sum(
+            (m.status or {}).get("compiles", 0)
+            for m in fleet.members.values()
+            if m.process.alive() and m.status is not None
+        )
+        # Build and preparation wall time per child (utils/build_cache.py
+        # totals, riding the status heartbeat): the scale-up latency
+        # row names how much of the child boot was backend compilation.
+        compile_ms = [
+            float((m.status or {}).get("xla_compile_ms"))
+            for m in fleet.members.values()
+            if m.status is not None
+            and (m.status or {}).get("xla_compile_ms") is not None
+        ]
+        hbm_peaks = [
+            int((m.status or {}).get("hbm_peak_bytes"))
+            for m in fleet.members.values()
+            if m.status is not None
+            and (m.status or {}).get("hbm_peak_bytes") is not None
+        ]
+        cost_cols = {}
+        if compile_ms:
+            cost_cols["xla_compile_ms_total"] = round(sum(compile_ms), 1)
+            cost_cols["xla_compile_ms_p50"] = round(
+                float(np.percentile(compile_ms, 50)), 1
+            )
+        if hbm_peaks:
+            cost_cols["hbm_peak_bytes"] = max(hbm_peaks)
+        frames_total = sum(
+            (m.status or {}).get("frames", 0)
+            for m in fleet.members.values()
+            if m.status is not None
+        )
+        ledger_path = os.path.join(root, "autopilot_ledger.jsonl")
+        ap.export_jsonl(ledger_path)
+        replay_ok, ledger_ticks = verify_ledger(ledger_path)
+        counts = dict(ap.counts)
+        # Aborts attributable to wire faults or fencing (everything but
+        # the administrative refusals) — the chaos row's blast radius.
+        aborted_chaos = sum(
+            1 for e in fleet.events
+            if e["event"] == "migrate_abort"
+            and e.get("reason") not in (
+                "unknown_match", "duplicate_match", "capacity"
+            )
+        )
+        row = _entry(
+            case,
+            float(np.percentile(scale_up_ms, 50)),
+            max(frames_total, 1), base.get("num_branches", 8),
+            rtt_ms=rtt0,
+            model="box_game",
+            servers=N,
+            scale_up_latency_p50_ms=round(
+                float(np.percentile(scale_up_ms, 50)), 1
+            ),
+            scale_up_latency_max_ms=round(max(scale_up_ms), 1),
+            scale_ups_measured=len(scale_up_ms),
+            preempt_latency_s=round(preempt_latency_s, 3),
+            preempt_landed_clean=preempt_landed_clean,
+            preempt_stall_frames=(
+                float(np.percentile(preempt_stalls, 50))
+                if preempt_stalls else None
+            ),
+            drain_pack_stall_p50_frames=float(
+                np.percentile(pack_stalls, 50)
+            ) if pack_stalls else 0.0,
+            drain_pack_stall_p99_frames=float(
+                np.percentile(pack_stalls, 99)
+            ) if pack_stalls else 0.0,
+            pack_migrations=len(pack_stalls),
+            servers_after_pack=servers_after_pack,
+            migrations_completed=int(fleet.migrations_completed),
+            migrations_aborted=int(fleet.migrations_aborted),
+            migrations_aborted_chaos=int(aborted_chaos),
+            matches_lost=int(fleet.matches_lost),
+            failovers=int(fleet.failovers),
+            churn_recompiles=int(churn_recompiles),
+            **cost_cols,
+            ctrl_retransmits=int(fleet.ctrl_retransmits),
+            epoch_fence_refusals=int(fleet.epoch_fence_refusals),
+            degraded_beats=int(ap.degraded_beats),
+            chaos_faults_injected=int(fleet.chaos_faults),
+            ledger_ticks=int(ledger_ticks),
+            ledger_replay_identical=bool(replay_ok),
+            decisions={k: int(v) for k, v in sorted(counts.items())},
+            notes=(
+                "subprocess fleet under the autopilot policy, one full "
+                "elasticity arc (scale-up at the high watermark, "
+                "burn-triggered preemptive evacuation landing with the "
+                "donor at zero fences, drain-pack-retire at the low "
+                "watermark); scale-up latency is spawn -> first UDP "
+                "heartbeat (a full child boot: torch, CUDA context, kernel "
+                "libraries found built on disk, server warmup); stalls are destination frames served "
+                "between wire offer and readmit; gated on matches_lost "
+                "== 0 and fleet-wide churn_recompiles == 0 (every "
+                "landing prepared by MatchServer.warmup's blob-codec "
+                "round-trip); the decision ledger replays identical "
+                "offline"
+            ) + (
+                "; CHAOS variant: every child UDP socket behind a "
+                "ChaosSocket (15% loss, 10% dup, 5% corrupt, 10% reorder "
+                "continuous + a 6s asymmetric partition of server 0's "
+                "sends) — the reliable control wire retransmits through "
+                "it, epoch fences refuse stale landings, and the "
+                "partition-aware liveness keeps failovers at 0"
+                if chaos else ""
+            ),
+        )
+        failed = False
+    finally:
+        if failed:
+            _print_child_logs(root)
+            print("fleet_autoscale: last events "
+                  + json.dumps(fleet.events[-40:], default=str)
+                  + "\nsamples " + json.dumps(
+                      {k: dataclasses.asdict(v) for k, v in fleet.samples().items()})
+                  + "\ndecisions " + json.dumps(dict(ap.counts))
+                  + "\nactions " + json.dumps([
+                      (r["tick"], a, {sid: [s["slots_active"], s["slots_free"],
+                                            s["draining"]]
+                                      for sid, s in r["observation"]["servers"].items()})
+                      for r in ap.ledger
+                      for a in r["actions"] if a["kind"] != "refuse"]),
+                  file=sys.stderr)
+        fleet.close()
+        merged = None
+        if td is not None:
+            merged = fleet.merge_observability(
+                os.path.join(td, f"{case}_merged_trace.json")
+            )
+        shutil.rmtree(root, ignore_errors=True)
+    if merged is not None:
+        row["merged_trace_processes"] = len({
+            ev.get("pid")
+            for ev in merged.get("traceEvents", [])
+            if ev.get("ph") != "M"
+        })
+    return row
+
+
+# ---------------------------------------------------------------------------
 # The matrix
 # ---------------------------------------------------------------------------
 
@@ -1599,18 +3201,14 @@ def _serve_sdc_case(S: int) -> dict:
 WAITING = {
     "boids_1k_8f_x_128b_xla": "parallel/sharding.py (boids' kernel='xla')",
     "live_multihost_2proc_spmd": "parallel/multihost.py",
-    "relay_fanout_64spec": "relay/ client, server, stream",
-    "relay_tree_1k": "relay/tree.py",
-    "fleet_migrate_S64": "fleet/",
-    "front_door_S256": "fleet/",
-    "fleet_autoscale_*": "fleet/",
 }
 
 
 def all_configs() -> list:
     return (list(_CONFIGS) + list(_RECOVERY_CONFIGS) + list(_LIVE_CONFIGS)
             + list(_EIGHTP_CONFIGS) + list(_SERVE_CONFIGS) + list(_SERVE_CHAOS_CONFIGS)
-            + list(_SERVE_SDC_CONFIGS))
+            + list(_SERVE_SDC_CONFIGS) + list(_RELAY_CONFIGS) + list(_RELAY_TREE_CONFIGS)
+            + list(_FLEET_CONFIGS) + list(_FRONT_DOOR_CONFIGS) + list(_AUTOSCALE_CONFIGS))
 
 
 def run_config(name: str) -> dict:
@@ -1626,6 +3224,16 @@ def run_config(name: str) -> dict:
         return _serve_chaos_case(_SERVE_CHAOS_CONFIGS[name])
     if name in _SERVE_SDC_CONFIGS:
         return _serve_sdc_case(_SERVE_SDC_CONFIGS[name])
+    if name in _RELAY_CONFIGS:
+        return _relay_fanout_case()
+    if name in _RELAY_TREE_CONFIGS:
+        return _relay_tree_1k_case()
+    if name in _FLEET_CONFIGS:
+        return _fleet_migrate_case(_FLEET_CONFIGS[name])
+    if name in _FRONT_DOOR_CONFIGS:
+        return _front_door_case(_FRONT_DOOR_CONFIGS[name])
+    if name in _AUTOSCALE_CONFIGS:
+        return _fleet_autoscale_case(*_AUTOSCALE_CONFIGS[name])
     if name in _CONFIGS:
         case, frames, branches = _CONFIGS[name]
         return measure_rollout(name, case, frames, branches)

@@ -22,13 +22,13 @@ Quick start::
     obs.export_prometheus(metrics, recorder)      # -> text exposition
 
 The serving tier's modules (provenance, slo, report, profiler,
-attribution) are ported with it; ``merge`` (the fleet's trace merger)
-comes with the fleet tier.
+attribution) and the fleet's trace merger (``merge``) are here too.
 """
 
 from .attribution import AttributionProbe, profile_window
 from .forensics import DesyncForensics, desync_report
 from .ledger import SpeculationLedger, blame_divergence, null_ledger, replay_baseline
+from .merge import follow, frame_flows, merge_traces
 from .profiler import HostProfiler, null_profiler
 from .prom import export_prometheus
 from .provenance import ProvenanceLog, SidecarSocket, flow_key
@@ -66,6 +66,9 @@ __all__ = [
     "export_perfetto",
     "export_prometheus",
     "flow_key",
+    "follow",
+    "frame_flows",
+    "merge_traces",
     "null_ledger",
     "null_profiler",
     "null_timeseries",

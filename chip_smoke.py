@@ -279,11 +279,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the same rollout's on the CPU. The examples print their kernels'
    launches (``--report-metrics``); they join the kernel table.
 
+18. The fleet and the relay on ``cuda`` (``fleet/``, ``relay/``). (a) A
+   ``FleetBalancer`` over a loopback network runs two ``MatchServer`` objects at
+   ``fleet_migrate_S64``'s shape (2 players, ``max_prediction`` 4, 8
+   branches x 3 frames), 16 matches: 4 live migrations over the type 18-21
+   wire, then server 0 stops, its heartbeat silence is detected and its
+   matches fail over from its on-disk checkpoint. Every match's state
+   checksum at its frame is bitwise that of a never-migrated SyncTest
+   control of the same match on the CPU (the input script ``(frame*3 +
+   handle*5 + match) % 16``); each restored world's kernel checksum on the
+   card equals ``checksum_plain`` of its CPU copy; no build counter moves
+   after warmup. (b) A ``ProcFleet`` of two ``python -m
+   bevy_ggrs_tpu_torch.fleet.proc`` children on ``cuda``, each with a
+   stderr file (its tail printed if a child dies unasked): 4 matches
+   admitted, one migrated between the children over UDP, the source
+   SIGKILLed and its matches failed over to the survivor from the parent's
+   re-pack of its checkpoint; 0 matches lost, ``compiles == 0`` in the
+   survivor's status and ``bye`` after warmup, the survivor's checksum
+   launches from its ``bye`` (counted from the ``rebase_compiles`` command
+   sent once the admitted matches serve). (c) A 2-peer box_game P2P match on ``cuda``
+   entirely through the root of an in-process depth-2 ``RelayTree`` (root,
+   2 mids, 4 leaves); its ``StatePublisher`` streams to 16 spectators at
+   the root and 64 at the leaves. Every spectator ends bitwise on the
+   publisher's ring row at the stream's head; that row's
+   ``checksum_plain`` on the CPU equals the digest the peer's save kernel
+   wrote; the peers' settled checksums agree. A ``fleet`` line (migrations,
+   failovers, matches lost, each child's warmup seconds and builds) and a
+   ``relay`` line (spectators bitwise, published frames and the read-backs
+   they cost, the phase's wall seconds) are printed.
+
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
 8 and 13, each P2P run of phases 10-14 (in the legs' process for 12 and
 14), each boids attestation of phase 11, each piece of phase 15, each
-tick of phase 16 (each run of its server) and each bench row and example
-process of phase 17, and
+tick of phase 16 (each run of its server), each bench row and example
+process of phase 17, and phase 18's in-process fleet and relay match (the
+children set their own to 0 at the ``rebase_compiles`` command sent just
+before the migration), and
 read just after (the P2P
 runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
@@ -4118,6 +4149,383 @@ def entry_points_phase(kernels, ts, device: str = "cuda") -> dict:
     return {"launches": total, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the fleet and the relay on cuda
+# ---------------------------------------------------------------------------
+
+FLEET = {"matches": 16, "players": 2, "max_prediction": 4, "branches": 8, "spec_frames": 3,
+         "groups": 4, "ramp": 20, "migrations": 4, "mig_every": 6, "checkpoint": 30,
+         "kill_after": 20, "after": 20}
+FLEET_PROC = {"matches": 4, "checkpoint": 40, "timeout": 120.0}
+RELAY = {"frames": 240, "spectators": 16, "tree_spectators": 64, "drain": 60}
+# The same legs cut for a run on the CPU.
+FLEET_SMALL = dict(FLEET, matches=6, migrations=2, ramp=8, checkpoint=12, after=8)
+RELAY_SMALL = dict(RELAY, frames=120, spectators=4, tree_spectators=8, drain=40)
+
+
+def fleet_inputs(match_id: int):
+    """The fleet's input script: a pure function of (frame, handle, match)."""
+    def f(frame, handle):
+        return np.uint8((frame * 3 + handle * 5 + match_id) % 16)
+
+    return f
+
+
+def fleet_control_checksums(ts, box_game, frames_of: dict, cfg=FLEET) -> dict:
+    """Each match's 64-bit state checksum at its frame, from a never-migrated
+    SyncTest control of the same match on the CPU."""
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import SessionBuilder
+
+    out = {}
+    for mid, frame in frames_of.items():
+        session = (SessionBuilder(box_game.INPUT_SPEC).with_num_players(cfg["players"])
+                   .with_max_prediction_window(cfg["max_prediction"])
+                   .with_check_distance(2).start_synctest_session())
+        runner = RollbackRunner(box_game.make_schedule(),
+                                box_game.make_world(cfg["players"], device="cpu").commit(),
+                                cfg["max_prediction"], cfg["players"], box_game.INPUT_SPEC,
+                                device="cpu")
+        inputs = fleet_inputs(mid)
+        while session.current_frame < frame:
+            for h in range(cfg["players"]):
+                session.add_local_input(h, inputs(session.current_frame, h))
+            runner.handle_requests(session.advance_frame(), session)
+        out[mid] = ts.combine64(ts.checksum(runner.state))
+    return out
+
+
+def fleet_inprocess(kernels, ts, tck, device, root, cfg=FLEET) -> dict:
+    """Leg (a): a FleetBalancer over a loopback network runs two
+    MatchServers on ``device``; live migrations, then a failover of server 0
+    from its on-disk checkpoint after heartbeat silence. Every match bitwise
+    its CPU control; the restored worlds' kernel checksum equals the plain
+    version's on a CPU copy; nothing is built after warmup."""
+    from bevy_ggrs_tpu_torch.fleet import FleetBalancer
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.serve import MatchServer
+    from bevy_ggrs_tpu_torch.session import SessionBuilder
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+    from bevy_ggrs_tpu_torch.utils import build_cache
+    from bevy_ggrs_tpu_torch.utils.metrics import Metrics
+
+    P, S = cfg["players"], cfg["matches"]
+    net = LoopbackNetwork()
+    metrics = Metrics()
+    bal = FleetBalancer(socket=net.socket(("fleet", "bal")), addr=("fleet", "bal"),
+                        heartbeat_timeout=0.5, clock=lambda: net.now, metrics=metrics)
+
+    def synctest():
+        return (SessionBuilder(box_game.INPUT_SPEC).with_num_players(P)
+                .with_max_prediction_window(cfg["max_prediction"])
+                .with_check_distance(2).start_synctest_session())
+
+    servers = {}
+    for k in range(2):
+        ck_dir = os.path.join(root, f"srv{k}")
+        srv = MatchServer(
+            box_game.make_schedule(), box_game.make_world(P, device=device).commit(),
+            cfg["max_prediction"], P, box_game.INPUT_SPEC, num_branches=cfg["branches"],
+            spec_frames=cfg["spec_frames"], capacity=S + 4, stagger_groups=cfg["groups"],
+            metrics=metrics, clock=lambda: net.now, checkpoint_dir=ck_dir,
+            checkpoint_interval=cfg["checkpoint"], server_id=k,
+            fleet_socket=net.socket(("hb", k)), fleet_addr=("fleet", "bal"),
+            heartbeat_interval=8, device=device)
+        srv.warmup()
+        bal.register(k, srv, addr=("mig", k), sock=net.socket(("mig", k)), checkpoint_dir=ck_dir)
+        servers[k] = srv
+    for m in range(S):
+        bal.place_match(m, synctest(), fleet_inputs(m), server_id=m % 2)
+    warm_id = 10_000  # a dummy on the survivor: server 0's checkpoints hold real matches only
+    bal.place_match(warm_id, synctest(), fleet_inputs(warm_id), server_id=1)
+
+    def tick():
+        net.advance(1.0 / 60.0)
+        for srv in servers.values():
+            srv.run_frame()
+        bal.pump()
+
+    for _ in range(cfg["ramp"]):
+        tick()
+    for dst in (0, 1):  # the churn paths, warm once per server
+        warm = bal.begin_migration(warm_id, dst_id=dst)
+        net.advance(0.0)
+        check(bal.complete_migration(warm) is not None, "fleet: warm migration")
+    base = build_cache.compile_counters()
+    reset_counts(kernels)
+    migrated, stalls = [], []
+    for i in range(cfg["migrations"]):
+        mid = 2 * i  # server 0's matches
+        mig = bal.begin_migration(mid, dst_id=1)
+        tick()
+        net.advance(0.0)
+        handle = bal.complete_migration(mig)
+        check(handle is not None and not mig.aborted, f"fleet: migration of match {mid}")
+        migrated.append(mid)
+        stalls.append(int(mig.stall_frames))
+        for _ in range(cfg["mig_every"]):
+            tick()
+    # A checkpoint of server 0 with every match it still hosts, then its loss.
+    on0 = [m for m, pl in bal.placements.items() if pl.server_id == 0]
+    for _ in range(cfg["checkpoint"] + 1):
+        tick()
+    del servers[0]
+    killed_at = net.now
+    dead, ticks = [], 0
+    while not dead:
+        tick()
+        dead = bal.check()
+        ticks += 1
+        check(ticks < 300, "fleet: server 0's silence never detected")
+    check(dead == [0], f"fleet: dead {dead}")
+    recovered = bal.failover(0)
+    for _ in range(cfg["after"]):
+        tick()
+    launches = {k: n for k, n in ((fn.__name__, fn.launches) for fn in kernels) if n}
+    builds = {k: v - base[k] for k, v in build_cache.compile_counters().items() if v != base[k]}
+    check(not builds, f"fleet: builds after warmup {builds}")
+    check(bal.matches_lost == 0, f"fleet: {bal.matches_lost} matches lost")
+    check(sorted(m for m, _, _ in recovered) == sorted(on0),
+          f"fleet: recovered {sorted(m for m, _, _ in recovered)} of {sorted(on0)}")
+    srv1 = servers[1]
+    frames_of, got = {}, {}
+    for m in range(S):
+        pl = bal.placements[m]
+        check(pl.server_id == 1, f"fleet: match {m} on server {pl.server_id}")
+        frames_of[m] = srv1.groups[pl.handle.group].slots[pl.handle.slot].frame
+        got[m] = ts.combine64(ts.checksum(srv1.groups[pl.handle.group].slot_state(
+            pl.handle.slot)))
+    control = fleet_control_checksums(ts, box_game, frames_of, cfg)
+    moved = sorted(set(migrated) | set(on0))
+    bad = [m for m in range(S) if got[m] != control[m]]
+    check(not bad, f"fleet: matches {bad} differ from their CPU controls")
+    # The kernel against its plain version on the restored worlds.
+    for m, _, h in recovered:
+        state = srv1.groups[h.group].slot_state(h.slot)
+        kern = tck.world_checksum(state).cpu()
+        plain = tck.checksum_plain(ts.tree_map(lambda x: x.cpu(), state))
+        check(torch.equal(kern, plain), f"fleet: restored match {m}: {kern} != {plain}")
+    return {"migrations": len(migrated), "migration_stall_frames": stalls,
+            "failovers": int(bal.failovers), "recovered": len(recovered),
+            "matches_lost": int(bal.matches_lost), "bitwise_vs_cpu_control": len(moved),
+            "detect_s": round(net.now - killed_at, 3), "launches": launches,
+            "builds_after_warmup": builds}
+
+
+def child_log_tail(member) -> str:
+    path = getattr(member.process._stderr, "name", None)
+    if not path or not os.path.exists(path):
+        return ""
+    with open(path, "rb") as f:
+        return f.read()[-3000:].decode(errors="replace")
+
+
+def fleet_processes(device, root, cfg=FLEET_PROC) -> dict:
+    """Leg (b): a ProcFleet of two ``python -m bevy_ggrs_tpu_torch.fleet.proc``
+    children on ``device``; admissions, one migration over real UDP, a
+    SIGKILL and the parent's checkpoint failover onto the survivor."""
+    from bevy_ggrs_tpu_torch.fleet.proc import ProcFleet
+
+    fleet = ProcFleet(root, base_config={"fps": 0, "heartbeat_interval": 8,
+                                         "status_interval": 20,
+                                         "checkpoint_interval": cfg["checkpoint"],
+                                         "device": device},
+                      heartbeat_timeout=2.0)
+    killed = set()
+
+    def until(pred, what, timeout=60.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            fleet.pump()
+            for sid, m in fleet.members.items():
+                if sid not in killed and not m.process.alive():
+                    check(False, f"fleet proc: child {sid} died: {child_log_tail(m)}")
+            if pred():
+                return
+            time.sleep(0.02)
+        tails = {sid: child_log_tail(m) for sid, m in fleet.members.items()}
+        check(False, f"fleet proc: timed out waiting for {what}; stderr {tails}")
+
+    def frames(sid):
+        st = fleet.members[sid].status or {}
+        return {int(k): v for k, v in st.get("matches", {}).items()}
+
+    try:
+        a = fleet.spawn_server(wait_ready=True, timeout=cfg["timeout"])
+        b = fleet.spawn_server(wait_ready=True, timeout=cfg["timeout"])
+        mids = list(range(41, 41 + cfg["matches"]))
+        for mid in mids:
+            check(fleet.admit(mid, a) == a, f"fleet proc: admit {mid}")
+        until(lambda: all(frames(a).get(m, 0) > 5 for m in mids), "matches serving")
+        for sid in (a, b):
+            fleet.members[sid].process.send(cmd="rebase_compiles")
+        check(fleet.migrate(mids[-1], b), "fleet proc: migrate")
+        until(lambda: fleet.migrations_completed == 1 and frames(b).get(mids[-1], 0) > 0,
+              "the migration")
+        base_frames = (fleet.members[a].status or {}).get("frames", 0)
+        until(lambda: (fleet.members[a].status or {}).get("frames", 0)
+              > base_frames + 2 * cfg["checkpoint"], "checkpoint coverage")
+        at_kill = frames(a)
+        killed.add(a)
+        fleet.members[a].process.kill()
+        dead = []
+        until(lambda: bool(dead.extend(fleet.check()) or dead), "death detection", 15.0)
+        check(dead == [a], f"fleet proc: dead {dead}")
+        fleet.failover(a, preferred={m: b for m in mids[:-1]})
+        until(lambda: fleet.matches_recovered + fleet.matches_lost >= len(mids) - 1,
+              "the failover")
+        check(fleet.matches_lost == 0, f"fleet proc: {fleet.matches_lost} matches lost")
+        until(lambda: all(frames(b).get(m, 0) > at_kill.get(m, 0) for m in mids[:-1]),
+              "recovered matches serving on")
+        st = fleet.members[b].status
+        check(st["faults"] == 0 and st["evictions"] == 0 and st["compiles"] == 0,
+              f"fleet proc: survivor status {st}")
+    finally:
+        fleet.close()
+    bye = fleet.members[b].status
+    check(bye.get("event") == "bye", f"fleet proc: no bye from the survivor: {bye}")
+    built = {sid: (m.status or {}).get("compiles") for sid, m in fleet.members.items()}
+    check(all(n == 0 for n in built.values()), f"fleet proc: builds after warmup {built}")
+    launches = bye["launches"].get("world_checksum", 0)
+    if device == "cuda":
+        check(launches > 0, "fleet proc: the survivor launched no checksum kernel")
+    return {"children": {sid: {"warmup_s": m.warmup_s, "first_beat_s": m.first_beat_s,
+                               "compiles": (m.status or {}).get("compiles")}
+                         for sid, m in fleet.members.items()},
+            "migrations": fleet.migrations_completed, "failovers": fleet.failovers,
+            "recovered": fleet.matches_recovered, "matches_lost": fleet.matches_lost,
+            "survivor_frames": bye["frames"], "survivor_launches": launches}
+
+
+def relay_leg(kernels, ts, tck, device, cfg=RELAY) -> dict:
+    """Leg (c): a 2-peer box_game match on ``device`` entirely through the
+    root relay of a depth-2 RelayTree (root, 2 mids, 4 leaves) over
+    loopback; the root serves ``spectators`` StreamSpectators, the leaves
+    ``tree_spectators``. Every spectator ends on the publisher's ring row,
+    bitwise; the row's plain checksum on the CPU equals the peer's saved
+    digest."""
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.relay import (RelaySocket, StateCodec, StatePublisher,
+                                           StreamSpectator, peer_addr)
+    from bevy_ggrs_tpu_torch.relay.tree import RelayTree
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import (PlayerType, PredictionThreshold,
+                                             SessionBuilder, SessionState)
+    from bevy_ggrs_tpu_torch.transport.loopback import LoopbackNetwork
+
+    P, MAXPRED = 2, 8
+    net = LoopbackNetwork()
+    n_spec = cfg["spectators"] + cfg["tree_spectators"]
+    tree = RelayTree(net.socket, session_id=1, clock=lambda: net.now, max_depth=2,
+                     fanout_capacity=4096, server_kwargs={"max_subscribers": 4096})
+    root = tree.add_relay()
+    mids = [tree.add_relay(parent=root.addr) for _ in range(2)]
+    leaves = [tree.add_relay(parent=mid.addr) for mid in mids for _ in range(2)]
+    peers = []
+    for me in range(P):
+        sock = RelaySocket(net.socket(("peer", me)), [root.addr], session_id=1, peer_id=me,
+                           clock=lambda: net.now)
+        builder = (SessionBuilder(box_game.INPUT_SPEC).with_num_players(P)
+                   .with_max_prediction_window(MAXPRED))
+        for h in range(P):
+            builder.add_player(PlayerType.local() if h == me
+                               else PlayerType.remote(peer_addr(h)), h)
+        runner = RollbackRunner(box_game.make_schedule(),
+                                box_game.make_world(P, device=device).commit(), MAXPRED, P,
+                                box_game.INPUT_SPEC, device=device)
+        peers.append((builder.start_p2p_session(sock, clock=lambda: net.now), runner))
+    pub = StatePublisher(*peers[0], socket=peers[0][0].socket)
+    codec = StateCodec.for_state(box_game.make_world(P, device="cpu").commit())
+    targets = [root.addr] * cfg["spectators"] + [
+        leaves[s % len(leaves)].addr for s in range(cfg["tree_spectators"])]
+    specs = [StreamSpectator(net.socket(("spec", s)), relays=[addr], session_id=1, codec=codec,
+                             clock=lambda: net.now) for s, addr in enumerate(targets)]
+    keys = [box_game.INPUT_UP, box_game.INPUT_RIGHT, box_game.INPUT_DOWN, 0]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    for _ in range(cfg["frames"]):
+        net.advance(1.0 / 60.0)
+        for session, runner in peers:
+            session.poll_remote_clients()
+            if session.current_state() != SessionState.RUNNING:
+                continue
+            for h in session.local_player_handles():
+                session.add_local_input(h, np.uint8(keys[(session.current_frame // 3 + h) % 4]))
+            try:
+                runner.handle_requests(session.advance_frame(), session)
+            except PredictionThreshold:
+                pass
+        pub.publish(net.now)
+        tree.pump(net.now)
+        for spec in specs:
+            spec.poll(net.now)
+    for _ in range(cfg["drain"]):  # the stream flushes to its head
+        net.advance(1.0 / 60.0)
+        for session, _ in peers:
+            session.poll_remote_clients()
+        pub.publish(net.now)
+        tree.pump(net.now)
+        for spec in specs:
+            spec.poll(net.now)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in ((fn.__name__, fn.launches) for fn in kernels) if n}
+    head, head_bytes = pub._prev_frame, pub._prev
+    runner0 = peers[0][1]
+    check(ts.ring_frame_at(runner0.ring, head) == head,
+          f"relay: the publisher's ring no longer holds frame {head}")
+    row = ts.ring_load(runner0.ring, head)
+    check(codec.encode(row) == head_bytes, "relay: the last published bytes are not the ring row")
+    exact = sum(1 for s in specs if s.current_frame == head and s.state_bytes == head_bytes)
+    check(exact == n_spec, f"relay: {n_spec - exact} of {n_spec} spectators not bitwise "
+          f"at frame {head}")
+    plain = tck.checksum_plain(codec.decode_state(head_bytes))
+    saved = runner0.ring.checksums[head % runner0.ring.depth].cpu()
+    check(torch.equal(plain, saved), f"relay: plain {plain} != the peer's saved digest {saved}")
+    sessions = [s for s, _ in peers]
+    upto = min(s.confirmed_frame() for s in sessions)
+    common = [f for f in sessions[0]._local_checksums
+              if f <= upto and all(f in s._local_checksums for s in sessions[1:])]
+    check(common and all(len({int(s._local_checksums[f]) for s in sessions}) == 1
+                         for f in common), "relay: the peers' settled checksums differ")
+    if head in sessions[0]._local_checksums:
+        check(int(sessions[0]._local_checksums[head]) == ts.combine64(plain),
+              "relay: the peer's settled checksum is not the decoded state's")
+    if device == "cuda":
+        check(launches.get("world_checksum", 0) > 0, "relay: no checksum launch")
+    return {"frames": int(runner0.frame), "published_frames": int(pub.published_frames),
+            "readbacks": int(pub.readbacks), "spectators": n_spec, "spectators_bitwise": exact,
+            "root_spectators": cfg["spectators"], "tree_spectators": cfg["tree_spectators"],
+            "tree_depth": tree.depth(), "head": int(head), "settled_compared": len(common),
+            "launches": launches, "wall_s": round(wall, 2)}
+
+
+def fleet_relay_phase(kernels, ts, tck) -> dict:
+    """Phase 18 (its docstring entry): the in-process fleet, the process
+    fleet and the relay, on the card. Prints a ``fleet`` line and a
+    ``relay`` line; returns the checksum launches they made."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        inproc = fleet_inprocess(kernels, ts, tck, "cuda", os.path.join(tmp, "inproc"))
+        procs = fleet_processes("cuda", os.path.join(tmp, "procs"))
+    relay = relay_leg(kernels, ts, tck, "cuda")
+    card = smi()
+    fleet_line = {"in_process": inproc, "processes": procs,
+                  "migrations": inproc["migrations"] + procs["migrations"],
+                  "failovers": inproc["failovers"] + procs["failovers"],
+                  "matches_lost": inproc["matches_lost"] + procs["matches_lost"],
+                  "card": card}
+    print("fleet " + json.dumps(fleet_line), flush=True)
+    relay["phase_wall_s"] = round(time.perf_counter() - t0, 2)
+    relay["card"] = card
+    print("relay " + json.dumps(relay), flush=True)
+    return {"launches": (inproc["launches"].get("world_checksum", 0)
+                         + procs["survivor_launches"]
+                         + relay["launches"].get("world_checksum", 0)),
+            "fleet": fleet_line, "relay": relay}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
@@ -4542,6 +4950,9 @@ def main() -> int:
     entry = entry_points_phase(kernels, ts)
     ck["launches"] += entry["launches"]["world_checksum"]
     mxu2["launches"] += entry["launches"]["pairwise_force_rows_mxu2"]
+
+    phase("18 fleet and relay on cuda")
+    ck["launches"] += fleet_relay_phase(kernels, ts, tck)["launches"]
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())

@@ -6,10 +6,12 @@ port draws its bits from a ``torch.Generator``, JAX from
 ``jax.random``: the parity is held on one bits array); a recovery config's
 serial resimulation and speculative commit reach the same state bitwise;
 rows of a rollout, a batched-serving and a live loopback config carry the
-columns ``tools/bench_gate.py::check_row`` demands and pass it; the bench
-writes its own detail file, never ``BENCH_DETAIL.json``.
+columns ``tools/bench_gate.py::check_row`` demands and pass it, and so does
+``relay_fanout_64spec`` at 4 spectators; the six host-tier configs are in
+the matrix and only sharding's two wait; the bench writes its own detail
+file, never ``BENCH_DETAIL.json``.
 
-About 17 s on one core.
+About 35 s on one core.
 """
 
 import hashlib
@@ -120,7 +122,31 @@ def test_the_bench_never_writes_the_jax_detail_file(tmp_path):
 def test_waiting_configs_say_what_they_wait_for():
     names = bench_torch.all_configs()
     assert len(names) == len(set(names)) >= 40
-    for name in ("boids_1k_8f_x_128b_xla", "relay_tree_1k", "fleet_autoscale_N4"):
+    for name in ("boids_1k_8f_x_128b_xla", "live_multihost_2proc_spmd"):
         assert name not in names
         with pytest.raises(NotImplementedError, match="waits for the port's"):
             bench_torch.run_config(name)
+    assert sorted(bench_torch.WAITING) == ["boids_1k_8f_x_128b_xla",
+                                           "live_multihost_2proc_spmd"]
+
+
+HOST_TIER_CONFIGS = ("relay_fanout_64spec", "relay_tree_1k", "fleet_migrate_S64",
+                     "front_door_S256", "fleet_autoscale_N3", "fleet_autoscale_N3_chaos")
+
+
+@pytest.mark.parametrize("name", HOST_TIER_CONFIGS)
+def test_host_tier_configs_are_in_the_matrix(name):
+    assert name in bench_torch.all_configs()
+
+
+def test_relay_fanout_row_passes_the_gate(monkeypatch):
+    """``relay_fanout_64spec`` at 4 spectators and 330 frames (180 of
+    baseline pumps, 120 of settling, then lag samples)."""
+    monkeypatch.setenv("GGRS_RELAY_SPECTATORS", "4")
+    monkeypatch.setenv("GGRS_RELAY_FRAMES", "330")
+    row = bench_torch.run_config("relay_fanout_64spec")
+    assert row["platform"] == "torch-cpu" and row["spectators"] == 4
+    assert row["published_frames"] > 200 and row["fanout_shed"] == 0
+    assert row["spectator_lag_p99_frames"] <= 2.0
+    json.dumps(row)
+    gate(row)

@@ -3,7 +3,9 @@
 ``examples_torch/`` import nothing of JAX or of the JAX package, and its entry points run on ``cuda`` unless told
 otherwise, raising when there is no GPU instead of falling back to the
 CPU (the models' worlds, the predictor's batched ranker, the runners and
-the bench included)."""
+the bench included). The fleet's and the relay tree's child processes
+serve on ``cuda`` unless their config says ``"cpu"``, and refuse to start
+without a GPU."""
 
 import ast
 import pathlib
@@ -204,3 +206,40 @@ def test_slot_save_launches_or_raises_off_the_cpu():
         tck.world_checksum(slots, "save", ring=rings,
                            frames=torch.zeros(3, dtype=torch.int32, device="meta"),
                            keep=torch.ones(3, dtype=torch.bool, device="meta"))
+
+
+CHILDREN = {
+    "bevy_ggrs_tpu_torch.fleet.proc": {"fps": 0, "capacity": 2, "stagger_groups": 1},
+    "bevy_ggrs_tpu_torch.relay.tree": {"relay_id": 1},
+}
+
+
+def run_child(module, config, env_extra):
+    """Start ``python -m module '<config>'``; return its first stdout line
+    (or ``""``), its exit code and its stderr, after asking it to stop."""
+    import json
+    import os
+
+    env = dict(os.environ, **env_extra)
+    proc = subprocess.Popen([sys.executable, "-m", module, json.dumps(config)], cwd=ROOT,
+                            env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    first = proc.stdout.readline().decode()
+    if first:
+        proc.stdin.write(b'{"cmd": "shutdown"}\n')
+        proc.stdin.flush()
+    out, err = proc.communicate(timeout=120)
+    return first, proc.returncode, err.decode()
+
+
+@pytest.mark.parametrize("module", sorted(CHILDREN))
+def test_children_default_to_cuda_and_raise_without_a_gpu(module):
+    import importlib
+
+    mod = importlib.import_module(module)
+    defaults = getattr(mod, "DEFAULT_CONFIG", None) or mod.DEFAULT_RELAY_PROC_CONFIG
+    assert defaults["device"] is None
+    first, rc, err = run_child(module, CHILDREN[module], {"CUDA_VISIBLE_DEVICES": ""})
+    assert first == "" and rc != 0 and "no CUDA device" in err, err[-2000:]
+    first, rc, err = run_child(module, dict(CHILDREN[module], device="cpu"), {})
+    assert '"event": "ready"' in first and rc == 0, err[-2000:]
