@@ -25,8 +25,10 @@ to 64 spectators (``relay_fanout_64spec``; ``GGRS_RELAY_SPECTATORS`` and
 servers (``fleet_migrate_S64``), an open-loop admission ladder
 (``front_door_S256``) and the subprocess fleet's autoscale arc under the
 autopilot (``fleet_autoscale_N3``, and ``_chaos`` with faults on every
-child socket). Sharding's two configs wait for the port's
-``parallel/sharding.py`` and ``multihost.py`` (``WAITING``).
+child socket), config 4 with JAX's XLA forces in plain PyTorch
+(``boids_1k_8f_x_128b_xla``), and a paced box_game SyncTest whose world is
+row-sharded across two worker processes of this script
+(``live_multihost_2proc_spmd``; ``GGRS_MULTIHOST_FRAMES`` shrinks it).
 
 Columns of a rollout row:
 
@@ -36,7 +38,9 @@ Columns of a rollout row:
 - ``latency_ms``: wall milliseconds of one rollout that ends with
   ``torch.cuda.synchronize()`` (median of 20);
 - ``sustained_ms``: wall milliseconds a rollout over 20 rollouts issued back
-  to back with one synchronize at the end.
+  to back with one synchronize at the end;
+- ``rollout_calls``: the 20 of the three above (3 for the xla row, whose
+  rollouts launch about 200,000 kernels each).
 
 The 16 ms budget is judged on both: ``within_budget_device`` on ``value``,
 ``within_budget_wall`` on ``latency_ms``. Each row carries ``platform``
@@ -310,11 +314,14 @@ def _config_flop_model(name: str):
     if name.startswith("boids"):
         n = int(re.search(r"boids_(\d+)k", name).group(1)) * 1024
         unit = "tc" if name.endswith("_mxu") else "f32"
+        where = ("the products run on the bf16 tensor cores (mxu2 below 4,096 boids, the "
+                 "triangle kernel from 4,096, which computes half the pairs)"
+                 if unit == "tc" else
+                 "plain PyTorch operations (kernel='xla') on the CUDA cores"
+                 if name.endswith("_xla") else "the f32 force kernel on the CUDA cores")
         return n * n * 31, unit, (
             "31 flops/pair x N^2 pairs (17 mask ops + 7 accumulator multiply-adds); "
-            + ("the products run on the bf16 tensor cores (mxu2 below 4,096 boids, the "
-               "triangle kernel from 4,096, which computes half the pairs)"
-               if unit == "tc" else "the f32 force kernel on the CUDA cores"))
+            + where)
     if name.startswith("neural_bots"):
         from bevy_ggrs_tpu_torch.models.neural_bots import HIDDEN, OBS_DIM
 
@@ -337,20 +344,26 @@ def _config_flop_model(name: str):
     return None, None, None
 
 
+# Rollouts a config's timings average over where ROLLOUT_CALLS would not
+# fit a run: the profiler records every kernel of every rollout.
+_ROLLOUT_CALLS = {"boids_1k_8f_x_128b_xla": 3}
+
+
 def measure_rollout(name: str, case, frames: int, branches: int) -> dict:
     """A rollout row: device ms (``value``), wall latency and sustained ms,
     the launches of each kernel in one rollout, its costliest kernels, the
     flop model's achieved rate and utilization."""
     ex, state, bits = case()
     run = lambda: ex.run(state, 0, bits)  # noqa: E731
+    calls = _ROLLOUT_CALLS.get(name, ROLLOUT_CALLS)
     run()
     _sync()
     before = launch_counts()
     run()
     _sync()
     per_rollout = _launch_delta(before)
-    latency, sustained = wall_stats(run)
-    device, top = device_ms(run)
+    latency, sustained = wall_stats(run, calls)
+    device, top = device_ms(run, calls)
     value = device if device is not None else latency
     extra = {}
     flops_fb, unit, note = _config_flop_model(name)
@@ -380,6 +393,7 @@ def measure_rollout(name: str, case, frames: int, branches: int) -> dict:
         device_busy_share=(round(device / latency, 4) if device is not None else None),
         kernel_launches_per_rollout=per_rollout,
         device_top_kernels_ms=top,
+        rollout_calls=calls,
         **extra,
     )
 
@@ -389,8 +403,7 @@ def run_headline() -> dict:
 
 
 # name -> (case builder, frames, branches); each runs in its own
-# subprocess under --all, the headline first. boids_1k_8f_x_128b_xla waits
-# for the port's sharding.
+# subprocess under --all, the headline first.
 _CONFIGS = {
     HEADLINE: (lambda: _box_game_case(2, 8, 256), 8, 256),
     # 1: the CPU reference's parity point: one branch, 4-frame recovery.
@@ -402,6 +415,10 @@ _CONFIGS = {
     # 4: entity-count scaling, 1k boids on the f32 and tensor-core kernels.
     "boids_1k_8f_x_128b_pallas": (lambda: _boids_case(1024, 2, 8, 128, "pallas"), 8, 128),
     "boids_1k_8f_x_128b_mxu": (lambda: _boids_case(1024, 2, 8, 128, "mxu"), 8, 128),
+    # JAX's XLA forces in plain PyTorch (the path JAX partitions across
+    # devices), in fixed 256-row chunks, a branch at a time: about 200,000
+    # small kernels a rollout, so it times 3 rollouts (_ROLLOUT_CALLS).
+    "boids_1k_8f_x_128b_xla": (lambda: _boids_case(1024, 2, 8, 128, "xla"), 8, 128),
     # The entity-scaling curve; N >= 4096 takes the triangle kernel.
     "boids_4k_8f_x_8b_mxu": (lambda: _boids_case(4096, 2, 8, 8, "mxu"), 8, 8),
     "boids_8k_8f_x_2b_mxu": (lambda: _boids_case(8192, 2, 8, 2, "mxu"), 8, 2),
@@ -1034,6 +1051,163 @@ _EIGHTP_CONFIGS = {
     "live_box_game_8p_spectator_spec_off": (False, None),
     "live_box_game_8p_spectator_spec_on_predictor": (True, "default"),
 }
+
+
+# ---------------------------------------------------------------------------
+# Two processes, one session: a SyncTest whose world is row-sharded across
+# them (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+_MULTIHOST_CONFIGS = ("live_multihost_2proc_spmd",)
+
+
+def _multihost_bench_worker(pid: int, nproc: int, port: str, device: str) -> None:
+    """One process of ``live_multihost_2proc_spmd``: joins the group at
+    ``127.0.0.1:port`` and runs a paced box_game SyncTest
+    (``check_distance`` 2, ``max_prediction`` 4) in lockstep with the
+    other process, the world and ring row-sharded across both (every save
+    and guard sums its checksum lanes across the processes). Every 60
+    frames the whole world's checksum is all-gathered and compared in band
+    (``desync_events``). Both processes run the same inputs. On one GPU
+    the group is gloo (NCCL refuses two ranks on one device), its
+    collectives staging CUDA tensors through host buffers; on the CPU it
+    is gloo too. Prints one ``MHBENCH {json}`` line."""
+    t_start = time.perf_counter()
+    set_device(device)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.parallel import multihost
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+    from bevy_ggrs_tpu_torch.state import combine64
+
+    got = multihost.initialize(f"127.0.0.1:{port}", nproc, pid, device=device,
+                               backend="gloo")
+    assert got == (pid, nproc), got
+    P = 2
+    frames = int(os.environ.get("GGRS_MULTIHOST_FRAMES", 600))
+    paced = os.environ.get("GGRS_LIVE_PACED", "1") != "0"
+    mesh = multihost.global_branch_mesh(entity_shards=nproc)
+    session = SyncTestSession(P, box_game.INPUT_SPEC, check_distance=2, max_prediction=4)
+    runner = RollbackRunner(box_game.make_schedule(),
+                            box_game.make_world(P, device=_dev()).commit(),
+                            max_prediction=4, num_players=P,
+                            input_spec=box_game.INPUT_SPEC, device=_dev(), mesh=mesh)
+    runner.warmup()
+    setup_warmup_ms = (time.perf_counter() - t_start) * 1000.0
+
+    def sync_checksum():
+        cs = combine64(runner.layout.entity.checksum(runner.state))
+        mine = torch.tensor([cs & 0xFFFFFFFF, cs >> 32], dtype=torch.int64)
+        everyone = [torch.zeros_like(mine) for _ in range(nproc)]
+        dist.all_gather(everyone, mine)
+        return cs, any(not torch.equal(e, mine) for e in everyone)
+
+    rng = np.random.RandomState(42)  # the same stream on every process
+    tick_ms, tick_sync, checksums = [], [], []
+    desync_events = 0
+    first_frame_ms = None
+    for tick in range(frames):
+        wall0 = time.perf_counter()
+        for h in range(P):
+            session.add_local_input(h, np.uint8(rng.randint(0, 16)))
+        runner.handle_requests(session.advance_frame(), session)
+        synced = (tick + 1) % 60 == 0
+        if synced:  # the cross-process desync check rides this frame
+            cs, diverged = sync_checksum()
+            checksums.append(f"{cs:#x}")
+            desync_events += int(diverged)
+        if first_frame_ms is None:
+            first_frame_ms = (time.perf_counter() - t_start) * 1000.0
+        tick_ms.append((time.perf_counter() - wall0) * 1000.0)
+        tick_sync.append(synced)
+        if paced:
+            leftover = _DT - (time.perf_counter() - wall0)
+            if leftover > 0:
+                time.sleep(leftover)
+    if frames % 60:
+        cs, diverged = sync_checksum()
+        checksums.append(f"{cs:#x}")
+        desync_events += int(diverged)
+    tick = np.asarray(tick_ms)
+    nosync = tick[~np.asarray(tick_sync, bool)]
+    print("MHBENCH " + json.dumps({
+        "pid": pid,
+        "frames_driven": int(tick.size),
+        "tick_p50_ms": round(float(np.percentile(tick, 50)), 3),
+        "tick_p99_ms": round(float(np.percentile(tick, 99)), 3),
+        "deadline_hit_rate": round(float((tick <= DEADLINE_MS).mean()), 4),
+        "deadline_hit_rate_nosync": round(float((nosync <= DEADLINE_MS).mean()), 4)
+        if nosync.size else 0.0,
+        "desync_events": int(desync_events),
+        "dcn_collectives": True,
+        "checksums": checksums,
+        "setup_warmup_ms": round(setup_warmup_ms, 1),
+        "cold_start_to_first_frame_ms": (round(first_frame_ms, 1)
+                                         if first_frame_ms is not None else -1.0),
+        "paced": paced,
+        "backend": dist.get_backend(),
+    }), flush=True)
+    dist.destroy_process_group()
+
+
+def _live_multihost_case() -> dict:
+    """``live_multihost_2proc_spmd``: two ``--multihost-worker`` processes
+    of this script on a free port; their ``MHBENCH`` lines aggregated
+    (worker 0's timings are the row's), their checksum streams compared
+    out of band on top of the in-band count."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker", str(i), "2",
+         str(port), _dev().type],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+        for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=900)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    reports = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        lines = [line for line in out.splitlines() if line.startswith("MHBENCH ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError(f"multihost worker {i} failed (rc {p.returncode}):\n"
+                               f"{out[-3000:]}")
+        reports.append(json.loads(lines[0][len("MHBENCH "):]))
+    w0, w1 = sorted(reports, key=lambda r: r["pid"])
+    equal = w0["checksums"] == w1["checksums"]
+    desync_events = max(w0["desync_events"], w1["desync_events"]) + int(not equal)
+    return _entry(
+        "live_multihost_2proc_spmd", max(w0["tick_p99_ms"], 1e-3),
+        frames=int(os.environ.get("GGRS_MULTIHOST_FRAMES", 600)), branches=1, rtt_ms=-1.0,
+        frames_driven=w0["frames_driven"],
+        tick_p50_ms=w0["tick_p50_ms"],
+        tick_p99_ms=w0["tick_p99_ms"],
+        deadline_hit_rate=w0["deadline_hit_rate"],
+        deadline_hit_rate_nosync=w0["deadline_hit_rate_nosync"],
+        paced=w0["paced"],
+        desync_events=desync_events,  # a live run is a soak: must be 0
+        setup_warmup_ms=w0["setup_warmup_ms"],
+        cold_start_to_first_frame_ms=w0["cold_start_to_first_frame_ms"],
+        processes=2,
+        global_devices=2,
+        dcn_collectives=bool(w0["dcn_collectives"] and w1["dcn_collectives"]),
+        checksum=w0["checksums"][-1] if w0["checksums"] else "0x0",
+        checksums_equal=equal,
+        backend=w0["backend"],
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -3197,18 +3371,16 @@ def _fleet_autoscale_case(N: int, chaos: bool = False) -> dict:
 # The matrix
 # ---------------------------------------------------------------------------
 
-# Configs of the JAX bench that wait for modules the port lacks.
-WAITING = {
-    "boids_1k_8f_x_128b_xla": "parallel/sharding.py (boids' kernel='xla')",
-    "live_multihost_2proc_spmd": "parallel/multihost.py",
-}
+# Configs of the JAX bench that wait for modules the port lacks: none.
+WAITING: dict = {}
 
 
 def all_configs() -> list:
     return (list(_CONFIGS) + list(_RECOVERY_CONFIGS) + list(_LIVE_CONFIGS)
-            + list(_EIGHTP_CONFIGS) + list(_SERVE_CONFIGS) + list(_SERVE_CHAOS_CONFIGS)
-            + list(_SERVE_SDC_CONFIGS) + list(_RELAY_CONFIGS) + list(_RELAY_TREE_CONFIGS)
-            + list(_FLEET_CONFIGS) + list(_FRONT_DOOR_CONFIGS) + list(_AUTOSCALE_CONFIGS))
+            + list(_EIGHTP_CONFIGS) + list(_MULTIHOST_CONFIGS) + list(_SERVE_CONFIGS)
+            + list(_SERVE_CHAOS_CONFIGS) + list(_SERVE_SDC_CONFIGS) + list(_RELAY_CONFIGS)
+            + list(_RELAY_TREE_CONFIGS) + list(_FLEET_CONFIGS) + list(_FRONT_DOOR_CONFIGS)
+            + list(_AUTOSCALE_CONFIGS))
 
 
 def run_config(name: str) -> dict:
@@ -3218,6 +3390,8 @@ def run_config(name: str) -> dict:
         return _live_session_case(*_LIVE_CONFIGS[name])
     if name in _EIGHTP_CONFIGS:
         return _live_8p_spectator_case(*_EIGHTP_CONFIGS[name])
+    if name in _MULTIHOST_CONFIGS:
+        return _live_multihost_case()
     if name in _SERVE_CONFIGS:
         return _serve_batched_case(*_SERVE_CONFIGS[name])
     if name in _SERVE_CHAOS_CONFIGS:
@@ -3237,10 +3411,6 @@ def run_config(name: str) -> dict:
     if name in _CONFIGS:
         case, frames, branches = _CONFIGS[name]
         return measure_rollout(name, case, frames, branches)
-    waiting = next((why for pat, why in WAITING.items()
-                    if name == pat or (pat.endswith("*") and name.startswith(pat[:-1]))), None)
-    if waiting:
-        raise NotImplementedError(f"{name} waits for the port's {waiting}")
     raise KeyError(f"unknown config {name!r}")
 
 
@@ -3283,6 +3453,11 @@ def run_matrix(names=None, out=None) -> list:
 
 def main(argv=None) -> int:
     import argparse
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--multihost-worker"]:
+        _multihost_bench_worker(int(argv[1]), int(argv[2]), argv[3], argv[4])
+        return 0
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

@@ -18,8 +18,10 @@ Counterpart of ``bevy_ggrs_tpu/app.py``:
 The stage runs SyncTest, P2P and spectator sessions. With
 ``GGRSPlugin.with_speculation(n)`` a P2P step is one
 :meth:`~bevy_ggrs_tpu_torch.spec_runner.SpeculativeRollbackRunner.tick`
-(the burst, any branch commit and the next n-branch rollout). Device
-meshes are not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+(the burst, any branch commit and the next n-branch rollout).
+``GGRSPlugin.with_mesh`` shards the session's world, ring and rollouts over
+a device mesh (``parallel/sharding.py``); every rank then runs the same app
+in lockstep.
 """
 
 from __future__ import annotations
@@ -153,18 +155,21 @@ class GGRSStage:
         metrics=None,
         speculation: Optional[int] = None,
         speculation_opts: Optional[dict] = None,
+        mesh=None,
+        entity_axis: str = "entity",
+        branch_axis: str = "branch",
     ):
         self.metrics = metrics if metrics is not None else null_metrics
         self.input_system = input_system
         self.update_frequency = int(update_frequency)
         runner_args = dict(max_prediction=max_prediction, num_players=num_players,
                            input_spec=input_spec, metrics=self.metrics,
-                           device=initial_state.device)
+                           device=initial_state.device, mesh=mesh, entity_axis=entity_axis)
         if speculation:
             from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
 
             self.runner = SpeculativeRollbackRunner(
-                schedule, initial_state, num_branches=speculation,
+                schedule, initial_state, num_branches=speculation, branch_axis=branch_axis,
                 **runner_args, **(speculation_opts or {}))
         else:
             self.runner = RollbackRunner(schedule, initial_state, **runner_args)
@@ -276,6 +281,9 @@ class GGRSPlugin:
         self.clock = None
         self.metrics = None
         self.device = None
+        self.mesh = None
+        self.entity_axis = "entity"
+        self.branch_axis = "branch"
         self.speculation: Optional[int] = None
         self.speculation_opts: Optional[dict] = None
 
@@ -336,11 +344,19 @@ class GGRSPlugin:
         self.device = device
         return self
 
-    def with_mesh(self, *args, **kwargs) -> "GGRSPlugin":
-        raise NotImplementedError(
-            "sharded sessions are not ported yet (ROADMAP.md, port queue: "
-            "'Sharding')"
-        )
+    def with_mesh(self, mesh, entity_axis: str = "entity",
+                  branch_axis: str = "branch") -> "GGRSPlugin":
+        """Run the session's world, snapshot ring and (with speculation)
+        live rollouts sharded over ``mesh`` (a ``DeviceMesh`` from
+        :func:`bevy_ggrs_tpu_torch.parallel.sharding.branch_mesh`): the
+        entity axis splits on ``entity_axis``, speculative branches on
+        ``branch_axis``. A speculating session needs both axes; the runner
+        rejects a mesh missing one at construction. Every rank builds and
+        runs the same app in lockstep."""
+        self.mesh = mesh
+        self.entity_axis = entity_axis
+        self.branch_axis = branch_axis
+        return self
 
     def with_speculation(self, num_branches: int, branch_values=None, attest: bool = True,
                          predictor=None) -> "GGRSPlugin":
@@ -388,6 +404,9 @@ class GGRSPlugin:
             metrics=self.metrics,
             speculation=self.speculation,
             speculation_opts=self.speculation_opts,
+            mesh=self.mesh,
+            entity_axis=self.entity_axis,
+            branch_axis=self.branch_axis,
         )
         attestation = getattr(app.stage.runner, "attestation", None)
         if attestation is not None and not attestation.ok:

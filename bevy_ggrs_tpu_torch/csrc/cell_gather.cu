@@ -43,11 +43,14 @@
 //
 // Tables stacked over B speculative branches are [feature][B][C][K] and
 // [feature][B][C][M] (ops/cell_gather.py stacks the features in front):
-// a branch is C more cells. The launch is a grid of (C, B), blockIdx.y the
-// branch, and each cell's block runs as in an unbatched launch, so every
-// branch's outputs are bitwise its unbatched launch's.
+// a branch is C more cells. The launch is a grid of (C, B), the branch
+// blockIdx.y (folded into blockIdx.z past 65,535: branch_grid.cuh), and
+// each cell's block runs as in an unbatched launch, so every branch's
+// outputs are bitwise its unbatched launch's.
 
 #include <cuda_runtime.h>
+
+#include "branch_grid.cuh"
 
 namespace {
 
@@ -157,7 +160,10 @@ __global__ void __launch_bounds__(kThreads, 2) cell_slot_forces_kernel(
   __shared__ int s_warp[kThreads / 32];
   auto* s_col = reinterpret_cast<float4*>(s_buf);         // [kTile][kColVec]
   auto* s_part = reinterpret_cast<float(*)[kThreads]>(s_buf);  // [kTerms][kThreads]
-  const long cell = (long)blockIdx.y * C + blockIdx.x;  // over all branches
+  // The branch (ggrs_branch_grid), then the cell over all branches.
+  const long branch = blockIdx.y + (long)gridDim.y * blockIdx.z;
+  if (branch >= B) return;
+  const long cell = branch * C + blockIdx.x;
   const float* row_base = rows + cell * K;
   const float* col_base = cols + cell * M;
   const long row_stride = (long)B * C * K, col_stride = (long)B * C * M;
@@ -255,10 +261,10 @@ extern "C" int ggrs_cell_slot_forces_flock(const void* rows, const void* cols,
                                            int M, float nr2, float sr2,
                                            float ws, float wa, float wc,
                                            void* stream) {
-  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const FlockPair pair{nr2, sr2, ws, wa, wc};
   cell_slot_forces_kernel<FlockPair>
-      <<<dim3(C, B), kThreads, 0, (cudaStream_t)stream>>>(
+      <<<ggrs_branch_grid(C, B), kThreads, 0, (cudaStream_t)stream>>>(
           (const float*)rows, (const float*)cols, (float*)out, B, C, K, M,
           pair);
   return (int)cudaGetLastError();

@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "branch_grid.cuh"
+
 namespace {
 
 constexpr int kTile = 1024;       // column boids staged per shared-memory tile
@@ -49,13 +51,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32) pairwise_force_rows_kernel(
     const float2* __restrict__ row_pos, const float2* __restrict__ row_vel,
     const float* __restrict__ row_active, const float2* __restrict__ all_pos,
     const float2* __restrict__ all_vel, const float* __restrict__ all_active,
-    float2* __restrict__ out, int R, int N, float nr2, float sr2, float ws,
-    float wa, float wc) {
+    float2* __restrict__ out, int B, int R, int N, float nr2, float sr2,
+    float ws, float wa, float wc) {
   __shared__ float2 s_pos[kTile];
   __shared__ float2 s_vel[kTile];
   __shared__ float s_act[kTile];
 
-  const long b = blockIdx.y;  // the branch
+  // The branch: blockIdx.y, and past gridDim.y's cap of 65,535 the
+  // blockIdx.z folds (ggrs_branch_grid).
+  const long b = blockIdx.y + (long)gridDim.y * blockIdx.z;
+  if (b >= B) return;
   row_pos += b * R;
   row_vel += b * R;
   row_active += b * R;
@@ -130,12 +135,12 @@ extern "C" int ggrs_pairwise_force_rows(
     float ws, float wa, float wc, void* stream) {
   if (warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
     return (int)cudaErrorInvalidValue;
-  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((R + warps - 1) / warps, B);
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid = ggrs_branch_grid((R + warps - 1) / warps, B);
   pairwise_force_rows_kernel<<<grid, warps * 32, 0, (cudaStream_t)stream>>>(
       (const float2*)row_pos, (const float2*)row_vel,
       (const float*)row_active, (const float2*)all_pos,
-      (const float2*)all_vel, (const float*)all_active, (float2*)out, R, N,
+      (const float2*)all_vel, (const float*)all_active, (float2*)out, B, R, N,
       nr2, sr2, ws, wa, wc);
   return (int)cudaGetLastError();
 }

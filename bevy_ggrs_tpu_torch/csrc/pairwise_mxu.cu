@@ -57,6 +57,7 @@
 
 #include <cooperative_groups.h>
 
+#include "branch_grid.cuh"
 #include "pair_mxu.cuh"
 
 namespace {
@@ -70,8 +71,8 @@ __global__ void __launch_bounds__(kThreads) pairwise_force_rows_mxu_kernel(
     const float2* __restrict__ row_pos, const float2* __restrict__ row_vel,
     const float* __restrict__ row_active, const float2* __restrict__ all_pos,
     const float2* __restrict__ all_vel, const float* __restrict__ all_active,
-    float2* __restrict__ out, int R, int N, float nr2, float sr2, float ws,
-    float wa, float wc) {
+    float2* __restrict__ out, int B, int R, int N, float nr2, float sr2,
+    float ws, float wa, float wc) {
   __shared__ __align__(128) unsigned char smem[kMaskBytes + 2 * kFeatBytes];
   __shared__ float s_rpx[kTile], s_rpy[kTile], s_cpx[kTile], s_cpy[kTile];
   __shared__ float s_sum[kParts][kTile];
@@ -81,7 +82,10 @@ __global__ void __launch_bounds__(kThreads) pairwise_force_rows_mxu_kernel(
   auto* s_feat = s_wlo + kTile * kLd;
   auto* s_sep = s_feat + 16 * kLd;
 
-  const long b = blockIdx.y;  // the branch
+  // The branch (ggrs_branch_grid); a cluster lies in one branch, so a
+  // cluster past B leaves whole, before any cluster barrier.
+  const long b = blockIdx.y + (long)gridDim.y * blockIdx.z;
+  if (b >= B) return;
   row_pos += b * R;
   row_vel += b * R;
   row_active += b * R;
@@ -169,9 +173,9 @@ extern "C" int ggrs_pairwise_force_rows_mxu(
     void* out, int B, int R, int N, int P, float nr2, float sr2, float ws,
     float wa, float wc, void* stream) {
   if (P != 1 && P != 2 && P != 4 && P != 8) return (int)cudaErrorInvalidValue;
-  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((R + kTile - 1) / kTile * P, B);
+  config.gridDim = ggrs_branch_grid((R + kTile - 1) / kTile * P, B);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = 0;
   config.stream = (cudaStream_t)stream;
@@ -186,7 +190,7 @@ extern "C" int ggrs_pairwise_force_rows_mxu(
       &config, pairwise_force_rows_mxu_kernel, (const float2*)row_pos,
       (const float2*)row_vel, (const float*)row_active,
       (const float2*)all_pos, (const float2*)all_vel,
-      (const float*)all_active, (float2*)out, R, N, nr2, sr2, ws, wa, wc);
+      (const float*)all_active, (float2*)out, B, R, N, nr2, sr2, ws, wa, wc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -57,6 +57,7 @@
 // *tri_scratch_shape(N)]). tile_of and every sum are as in an unbatched
 // launch, so every branch's forces are bitwise its unbatched launch's.
 
+#include "branch_grid.cuh"
 #include "pair_mxu.cuh"
 
 namespace {
@@ -88,9 +89,10 @@ __device__ inline void tile_of(long b, int nb, int& ri, int& cj) {
 // part: float [2 sides][tiles][kParts][kTile], side 0 the row side.
 __global__ void __launch_bounds__(kThreads) tri_tiles_kernel(
     const float2* __restrict__ pos, const float2* __restrict__ vel,
-    const float* __restrict__ active, float* __restrict__ part, int N, int nb,
-    float nr2, float sr2) {
-  const long b = blockIdx.y;  // the branch
+    const float* __restrict__ active, float* __restrict__ part, int B, int N,
+    int nb, float nr2, float sr2) {
+  const long b = blockIdx.y + (long)gridDim.y * blockIdx.z;  // ggrs_branch_grid
+  if (b >= B) return;
   const long tiles = (long)nb * (nb + 1) / 2;
   pos += b * N;
   vel += b * N;
@@ -195,10 +197,12 @@ __device__ inline float sum_partials(const float* __restrict__ part, int n,
 __global__ void __launch_bounds__(kParts * kCombineBoids) tri_combine_kernel(
     const float2* __restrict__ pos, const float2* __restrict__ vel,
     const float* __restrict__ active, const float* __restrict__ part,
-    float2* __restrict__ out, int N, int nb, float ws, float wa, float wc) {
+    float2* __restrict__ out, int B, int N, int nb, float ws, float wa,
+    float wc) {
   constexpr int kHalves = kTile / kCombineBoids;
   __shared__ float s_sum[kParts][kCombineBoids];
-  const long b = blockIdx.y;  // the branch
+  const long b = blockIdx.y + (long)gridDim.y * blockIdx.z;  // ggrs_branch_grid
+  if (b >= B) return;
   pos += b * N;
   vel += b * N;
   active += b * N;
@@ -236,17 +240,17 @@ extern "C" int ggrs_pairwise_force_square_tri(
     const void* pos, const void* vel, const void* active, void* part,
     void* out, int B, int N, float nr2, float sr2, float ws, float wa,
     float wc, void* stream) {
-  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const int nb = (N + kTile - 1) / kTile;
   const cudaStream_t s = (cudaStream_t)stream;
-  tri_tiles_kernel<<<dim3(nb * (nb + 1) / 2, B), kThreads, 0, s>>>(
+  tri_tiles_kernel<<<ggrs_branch_grid(nb * (nb + 1) / 2, B), kThreads, 0, s>>>(
       (const float2*)pos, (const float2*)vel, (const float*)active,
-      (float*)part, N, nb, nr2, sr2);
+      (float*)part, B, N, nb, nr2, sr2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  tri_combine_kernel<<<dim3(nb * (kTile / kCombineBoids), B),
+  tri_combine_kernel<<<ggrs_branch_grid(nb * (kTile / kCombineBoids), B),
                        kParts * kCombineBoids, 0, s>>>((const float2*)pos, (const float2*)vel,
                                (const float*)active, (const float*)part,
-                               (float2*)out, N, nb, ws, wa, wc);
+                               (float2*)out, B, N, nb, ws, wa, wc);
   return (int)cudaGetLastError();
 }

@@ -48,48 +48,53 @@ class StateFault(RuntimeError):
         )
 
 
-def _state_digest(state: WorldState) -> torch.Tensor:
+def _state_digest(state: WorldState, shard=None) -> torch.Tensor:
     """Digest of one live world state, or of the serving tier's ``[S]``
-    stacked states (the bitwise-repair witness): one launch."""
-    return checksum(state)
+    stacked states (the bitwise-repair witness): one launch. ``shard``
+    (an ``EntityShard``, here and below): ``state`` is its row block, and
+    the digest is the whole world's."""
+    return checksum(state) if shard is None else shard.checksum(state)
 
 
-def ring_digests(ring: SnapshotRing) -> torch.Tensor:
+def ring_digests(ring: SnapshotRing, shard=None) -> torch.Tensor:
     """Recomputed per-row digests, shaped like ``ring.checksums``: one
     kernel launch over every row (a ``[depth]`` ring or ``[S, depth]``
     rings)."""
-    return checksum(ring.states)
+    return _state_digest(ring.states, shard)
 
 
-def attest_ring(ring: SnapshotRing) -> np.ndarray:
+def attest_ring(ring: SnapshotRing, shard=None) -> np.ndarray:
     """Attestation mask shaped like ``ring.frames``: True where an occupied
     row's recomputed digest disagrees with the digest stored at save time
     (corruption in the states or in the stored digest — either way the
     row can no longer be trusted as a rollback base)."""
-    digests = ring_digests(ring).cpu().numpy()
+    digests = ring_digests(ring, shard).cpu().numpy()
     frames = ring.frames.cpu().numpy()
     stored = ring.checksums.cpu().numpy()
     return (frames >= 0) & np.any(digests != stored, axis=-1)
 
 
-def verify_row(ring: SnapshotRing, frame: int) -> bool:
+def verify_row(ring: SnapshotRing, frame: int, shard=None) -> bool:
     """Restore-path guard (singleton rings): does ``frame``'s row still
     hash to its save-time digest? A non-resident frame returns True — a
     load of a rotated-out frame is a protocol bug, not corruption. One
     launch of the checksum kernel in its guard mode, which hashes the row
-    in place and compares it on the device, and one 4-byte read."""
+    in place and compares it on the device, and one 4-byte read (on an
+    entity shard: the row's lanes summed over the group, then compared)."""
+    if shard is not None:
+        return shard.guard(ring, frame)
     return bool(world_checksum(None, "guard", ring=ring, frame=frame).item())
 
 
-def warm(ring: SnapshotRing, state=None, states=None) -> None:
+def warm(ring: SnapshotRing, state=None, states=None, shard=None) -> None:
     """Run every digest pass this ring and state (or ``[S]`` states) will
     need once, so the kernel is built and each world structure's layout
     cached before the session goes live: attestation and repair then
     prepare nothing on the serving path (``utils.build_cache``)."""
-    ring_digests(ring)  # the guard reads the same layout as this pass
+    ring_digests(ring, shard)  # the guard reads the same layout as this pass
     for live in (state, states):
         if live is not None:
-            _state_digest(live)
+            _state_digest(live, shard)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,8 @@ The systems take a world with leading axes as well: a ``[B, capacity]``
 world (the speculative rollout's branches, where JAX vmaps the step) with
 ``bits[B, players]``, each branch reading its own inputs. Every operation
 is elementwise, so each branch's bits equal the single world's step.
+Both systems are entity-local: under entity sharding each rank steps its
+own rows (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from bevy_ggrs_tpu_torch.ops.exact import sqrt_f32
+from bevy_ggrs_tpu_torch.parallel.sharding import entity_local
 from bevy_ggrs_tpu_torch.schedule import InputSpec, PlayerInputs, Schedule
 from bevy_ggrs_tpu_torch.state import HostWorld, TypeRegistry, WorldState, resolve_device
 
@@ -97,6 +100,7 @@ def _magnitude(vx: torch.Tensor, vy: torch.Tensor, vz: torch.Tensor) -> torch.Te
     return sqrt_f32(vx * vx + vy * vy + vz * vz)
 
 
+@entity_local
 def move_cube_system(state: WorldState, inputs: PlayerInputs) -> WorldState:
     """All cubes in one masked update; non-player and dead slots pass
     through unchanged. Over leading axes (``[..., capacity]``), each world
@@ -159,6 +163,7 @@ def increment_u32(x: torch.Tensor) -> torch.Tensor:
     return (x.view(torch.int32) + 1).view(torch.uint32)
 
 
+@entity_local
 def increase_frame_system(state: WorldState, inputs: PlayerInputs) -> WorldState:
     """Count simulated frames in the ``frame_count`` resource."""
     del inputs

@@ -73,7 +73,9 @@ def desync_report(
         if breakdown is None:
             # Frame already rotated out of the ring: fall back to the live
             # state, which still carries the divergence until recovery.
-            breakdown = checksum_breakdown(runner.state)
+            # (Whole, on an entity-sharded runner.)
+            live = runner.whole_state() if hasattr(runner, "whole_state") else runner.state
+            breakdown = checksum_breakdown(live)
             breakdown_frame = int(runner.frame)
             breakdown_source = "current_state"
         breakdown = {k: int(v) for k, v in breakdown.items()}

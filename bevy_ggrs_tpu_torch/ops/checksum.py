@@ -103,20 +103,24 @@ def _entity_hash_sum_plain(words: torch.Tensor, alive: torch.Tensor) -> torch.Te
     return h.sum(dim=2) & _M32
 
 
-def checksum_plain(state: WorldState) -> torch.Tensor:
+def checksum_plain(state: WorldState, resources: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the ``checksum`` mode on any device:
     ``int64[*lead, 2]``, each world row equal to
-    :func:`bevy_ggrs_tpu_torch.state.checksum` of that row."""
+    :func:`bevy_ggrs_tpu_torch.state.checksum` of that row. With
+    ``resources`` off the resources and their constant term are left out
+    (the lanes of an entity shard on every rank of its group but one)."""
     lead = tuple(state.alive.shape[:-1])
     B = math.prod(lead)
     alive = state.alive.reshape(B, state.capacity)
     lanes = _entity_hash_sum_plain(_word_matrix(state), alive)
+    if not resources:
+        return lanes.reshape(lead + (2,))
     res = state_lib._resources_checksum(state.resources, state.device, lead)
     return ((lanes + res.reshape(B, 2)) & _M32).reshape(lead + (2,))
 
 
 def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
-               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None, resources: bool = True) -> torch.Tensor:
     """Plain version of the ``save`` mode: the checksum, a ``copy_`` per
     leaf into ring row ``frame % depth`` (of every ring of a ``[B,
     depth]`` stack, for a ``[B]`` world), the row's frame and digest, and
@@ -125,7 +129,7 @@ def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
     if lead != tuple(ring.frames.shape[:-1]):
         raise ValueError("save takes a world of the ring's structure, leading axes and device")
     row = (slice(None),) * len(lead) + (int(frame) % ring.depth,)
-    cs = checksum_plain(state)
+    cs = checksum_plain(state, resources)
     tree_map(lambda r, s: r[row].copy_(s), ring.states, state)
     ring.frames[row] = int(frame)
     ring.checksums[row] = cs
@@ -440,6 +444,13 @@ def _ring_prepared(ring: SnapshotRing) -> Tuple[Layout, List[torch.Tensor]]:
     return lay, rows
 
 
+def _drop_resources(header: _Header) -> None:
+    """The launch's resource role off: no resource word is hashed and no
+    constant term added (the parts stay, so a save still copies them)."""
+    header.resource_words = 0
+    header.const_lo = header.const_hi = 0
+
+
 def _launch(lay: Layout, parts, header, B: int, device: torch.device) -> None:
     if not 0 < B * lay.cluster < 1 << 31:
         raise ValueError(f"unsupported batch of {B} world rows")
@@ -456,7 +467,8 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
                    ring: Optional[SnapshotRing] = None, frame: int = 0,
                    out: Optional[torch.Tensor] = None,
                    frames: Optional[torch.Tensor] = None,
-                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   keep: Optional[torch.Tensor] = None,
+                   resources: bool = True) -> torch.Tensor:
     """One launch of the checksum kernel in ``mode``:
 
     - ``"checksum"``: ``int64[*lead, 2]`` lanes of ``state``;
@@ -479,7 +491,13 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
 
     A CPU world takes the plain version of the mode; a CUDA world launches
     the kernel (``csrc/checksum.cu``) on the current stream; any other
-    device, or a world the kernel cannot take, raises."""
+    device, or a world the kernel cannot take, raises.
+
+    ``resources=False`` leaves the resource words and their constant term
+    out of the lanes (the launch's resource word count and constants are
+    0; the save still copies the resources): an entity shard's lanes
+    carry the replicated resources on one rank only
+    (:meth:`bevy_ggrs_tpu_torch.parallel.sharding.EntityShard.checksum`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     wants = {"checksum": (True, False), "save": (True, True), "guard": (False, True)}[mode]
@@ -505,9 +523,9 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
         if frames is not None:
             return save_slots_plain(ring, state, frames, keep, out)
         if mode == "checksum":
-            return checksum_plain(state)
+            return checksum_plain(state, resources)
         if mode == "save":
-            return save_plain(ring, state, frame, out)
+            return save_plain(ring, state, frame, out, resources)
         return guard_plain(ring, frame)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
@@ -525,6 +543,8 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
             p.src = t.data_ptr()
         header = _Header.from_buffer_copy(lay.header_bytes)
         header.lanes = lanes.data_ptr()
+        if not resources:
+            _drop_resources(header)
         _launch(lay, parts, header, B, device)
         return lanes
     lay, rows = _ring_prepared(ring)
@@ -534,6 +554,8 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
     header = _Header.from_buffer_copy(lay.header_bytes)
     header.mode = MODES[mode]
     header.frame = int(frame)
+    if not resources:
+        _drop_resources(header)
     if mode == "save":
         slay, tensors = _prepared(state)
         if (id(slay), id(lay)) not in _ring_pairs:

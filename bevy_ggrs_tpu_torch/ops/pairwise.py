@@ -25,8 +25,9 @@ Every wrapper and plain version takes one world (``[R, 2]`` rows, ``[N,
 ``b`` of a batched call is bitwise the unbatched call on branch ``b``'s
 operands:
 
-- a kernel takes the branch as ``blockIdx.y`` and runs each branch's
-  blocks exactly as an unbatched launch runs them. Its launch shape comes
+- a kernel takes the branch as ``blockIdx.y`` (folded into
+  ``blockIdx.z`` past 65,535 branches, :func:`branch_grid`) and runs each
+  branch's blocks exactly as an unbatched launch runs them. Its launch shape comes
   from the per-world ``R`` and ``N`` only (:func:`force_rows_launch_shape`,
   :func:`mxu2_launch_shape`), never from B: mxu2's cluster size fixes the
   order in which its stages add, so a size chosen from B would give other
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,16 +49,28 @@ import torch
 from bevy_ggrs_tpu_torch.ops import _build
 
 
-MAX_BRANCHES = 65535  # a force kernel's branches ride gridDim.y, capped here
+MAX_GRID_Y = 65535  # blocks gridDim.y holds at most (gridDim.z the same)
+# A force kernel's branches ride gridDim.y and fold into gridDim.z past its
+# cap (csrc/branch_grid.cuh), so a launch takes up to 65,535² branches.
+MAX_BRANCHES = MAX_GRID_Y * MAX_GRID_Y
+
+
+def branch_grid(x: int, branches: int) -> Tuple[int, int, int]:
+    """The grid ``(x, y, z)`` of a force kernel's launch over ``branches``
+    branches, as ``ggrs_branch_grid`` in ``csrc/branch_grid.cuh`` makes
+    it: branch ``b = y_index + y * z_index``, the blocks past the last
+    branch leaving at once."""
+    return (int(x), min(int(branches), MAX_GRID_Y), -(-int(branches) // MAX_GRID_Y))
 
 
 def check_branch_cap(branches: int, what: str) -> None:
     """Raise before a launch whose branch axis (serving's slots x branches,
-    flattened) would exceed the ``gridDim.y`` cap of the force kernels:
-    the card would refuse it with no more than ``cudaErrorInvalidValue``."""
+    flattened) would exceed what ``gridDim.y`` and ``gridDim.z`` hold
+    together: the card would refuse it with no more than
+    ``cudaErrorInvalidValue``."""
     if branches > MAX_BRANCHES:
         raise ValueError(f"{what}: {branches} branches exceed the force kernels' "
-                         f"cap of {MAX_BRANCHES:,} (gridDim.y)")
+                         f"cap of {MAX_BRANCHES:,} (gridDim.y x gridDim.z)")
 
 
 def _squared(radius: float) -> float:
@@ -346,6 +359,16 @@ def _feats_of(pos, vel, active):
     return _lane_feats(pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], active)
 
 
+def _row_tiles(x: torch.Tensor) -> torch.Tensor:
+    """``x[R, ...]`` as ``[ceil(R / 64), 64, ...]`` row tiles, the last
+    padded with zero rows: every product then has one shape, whatever R."""
+    r = x.shape[0]
+    pad = -r % MXU_TILE
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.reshape((-1, MXU_TILE) + tuple(x.shape[1:]))
+
+
 @per_branch
 def pairwise_force_rows_mxu2_plain(
     row_pos: torch.Tensor,  # f32[R, 2]
@@ -354,14 +377,47 @@ def pairwise_force_rows_mxu2_plain(
     all_vel: torch.Tensor,  # f32[N, 2]
     row_active: torch.Tensor,  # f32[R]
     all_active: torch.Tensor,  # f32[N]
-    **params,
+    *,
+    launch_rows: Optional[int] = None,
+    neighbor_radius: float,
+    separation_radius: float,
+    **weights,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tensor-core kernel: the bf16 pair
-    matrices over dense ``[R, N]`` tensors, one f32 product each (a branch
-    at a time over a leading ``[B]``)."""
+    matrices in the kernel's blocks, 64 rows against each cluster rank's
+    column tiles (:func:`mxu2_tile_ranges` of the launch shape for
+    ``launch_rows``, default R), one f32 product each, the ranks' partial
+    sums added in rank order (a branch at a time over a leading ``[B]``).
+    Every product has the same shape for any R, so a row block of a
+    sharded world gets the bits of the same rows of the whole world's
+    call when ``launch_rows`` is the whole world's row count."""
+    n, r = all_pos.shape[0], row_pos.shape[0]
+    p, _ = mxu2_launch_shape(r if launch_rows is None else launch_rows, n)
+    cols = [(a * MXU_TILE, min(b * MXU_TILE, n)) for a, b in mxu2_tile_ranges(n, p)]
+    cols = [(a, b) for a, b in cols if b > a]
     feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
-    return _mxu_forces(row_pos, row_vel, row_active, all_pos, feat_t, sep_t,
-                       **params)
+    feat, sep = feat_t.to(torch.float32), sep_t.to(torch.float32)
+    rp = _row_tiles(row_pos).reshape(-1, 2)
+    masks = _pair_masks(rp[:, 0:1], rp[:, 1:2], all_pos[None, :, 0], all_pos[None, :, 1],
+                        neighbor_radius=neighbor_radius,
+                        separation_radius=separation_radius)
+    neigh, w_hi, w_lo = (m.to(torch.float32) for m in masks)  # [R padded, N]
+    acc_n = feat.new_empty((feat.shape[0], rp.shape[0]))
+    acc_w = sep.new_empty((sep.shape[0], rp.shape[0]))
+    for r0 in range(0, rp.shape[0], MXU_TILE):
+        rows = slice(r0, r0 + MXU_TILE)
+        tn = tw = None
+        for a, b in cols:
+            fn = feat[:, a:b] @ neigh[rows, a:b].T  # [10, 64]
+            fw = sep[:, a:b] @ w_hi[rows, a:b].T + sep[:, a:b] @ w_lo[rows, a:b].T
+            tn, tw = (fn, fw) if tn is None else (tn + fn, tw + fw)
+        acc_n[:, rows] = tn
+        acc_w[:, rows] = tw
+    acc_n, acc_w = acc_n[:, :r], acc_w[:, :r]
+    fx, fy = _combine_forces(
+        _acc_sums(acc_n, acc_w), row_pos[:, 0], row_pos[:, 1],
+        row_vel[:, 0], row_vel[:, 1], row_active, **weights)
+    return torch.stack([fx, fy], dim=1)
 
 
 @per_branch
@@ -420,11 +476,20 @@ def pairwise_force_rows_mxu2(
     all_vel: torch.Tensor,
     row_active: torch.Tensor,
     all_active: torch.Tensor,
+    *,
+    launch_rows: Optional[int] = None,
     **params,
 ) -> torch.Tensor:
     """``f32[R, 2]`` flocking force on each row boid from all boids, the
     sums on the tensor cores (``[B, R, 2]`` over a leading branch axis).
     ``params`` are the five floats of :func:`pairwise_force_rows`.
+
+    ``launch_rows`` (default R) is the row count the launch shape is
+    chosen for. A sharded caller computing its row block of an N-row world
+    passes N: the cluster size, and so the column split and the order in
+    which the ranks' sums add, is then the whole world's, and each row
+    gets the bits of the unsharded call (:func:`mxu2_launch_shape` would
+    give 2,048 rows of 4,096 columns a larger cluster than 4,096 rows).
 
     A CPU tensor takes :func:`pairwise_force_rows_mxu2_plain`; a CUDA
     tensor launches ``csrc/pairwise_mxu.cu`` once on the current stream, as
@@ -434,9 +499,9 @@ def pairwise_force_rows_mxu2(
     args = (row_pos, row_vel, all_pos, all_vel, row_active, all_active)
     device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
-        return pairwise_force_rows_mxu2_plain(*args, **params)
+        return pairwise_force_rows_mxu2_plain(*args, launch_rows=launch_rows, **params)
     check_branch_cap(B, "pairwise_force_rows_mxu2")
-    p, _ = mxu2_launch_shape(R, N)
+    p, _ = mxu2_launch_shape(R if launch_rows is None else int(launch_rows), N)
     out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
                          _ARGTYPES)

@@ -1,6 +1,6 @@
-"""Speculative branch batching: candidate input futures as a leading
-tensor axis (``parallel/speculate.py``). Device-mesh sharding is not
-ported yet (ROADMAP.md, port queue item 8)."""
+"""Parallelism layer: speculative branch batching (``parallel/speculate.py``)
+and device-mesh sharding over ``torch.distributed``
+(``parallel/sharding.py``, ``parallel/multihost.py``)."""
 
 from bevy_ggrs_tpu_torch.parallel.speculate import (
     BranchSampler,
@@ -10,3 +10,4 @@ from bevy_ggrs_tpu_torch.parallel.speculate import (
     match_branch,
     merge_rings,
 )
+from bevy_ggrs_tpu_torch.parallel.sharding import branch_mesh, shard_branch_axis

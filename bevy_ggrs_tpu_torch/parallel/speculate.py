@@ -21,8 +21,13 @@ misprediction becomes a copy, not a resimulation.
 
 The JAX package's samplers draw from ``jax.random``; the port's draw from a
 ``torch.Generator``, with the same structure (branch 0 repeat-last) and
-reproducible from its seed, and cannot be bitwise JAX's draws. A device
-mesh (``mesh=``) is not ported yet (ROADMAP.md, port queue item 8).
+reproducible from its seed, and cannot be bitwise JAX's draws.
+
+With a device mesh (``mesh=``, ``parallel/sharding.py``) the branches split
+over the mesh's branch axis: each rank rolls out its contiguous block (no
+collective), and a commit broadcasts the chosen branch from the rank that
+owns it over the branch group. With ``entity_axis`` too, each world's
+entity axis splits over that axis as in the serial executor.
 """
 
 from __future__ import annotations
@@ -148,35 +153,50 @@ class SpecResult:
     branch_bits: Any
     start_frame: int
     num_frames: int
+    # On a branch-sharded mesh: the global index of this rank's first
+    # branch (``rings``, ``states`` and ``checksums`` hold its block).
+    first_branch: int = 0
 
 
 def rollout_branches(schedule: Schedule, state: WorldState, start_frame: int,
                      branch_bits: torch.Tensor, status: torch.Tensor,
-                     depth: int) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+                     depth: int, shard=None) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Every branch of ``branch_bits[B, F, ...]`` from the single world
     ``state``: fresh ``[B, depth]`` rings, then (save, advance) × F, the
     semantics of F serial SaveGameState/AdvanceFrame pairs per branch.
-    Returns ``(rings, states[B], checksums[B, F, 2])``."""
+    Returns ``(rings, states[B], checksums[B, F, 2])``. ``shard`` (an
+    ``EntityShard``): ``state`` is its row block, and the saved lanes are
+    the whole world's."""
     B, F = int(branch_bits.shape[0]), int(branch_bits.shape[1])
     rings = branch_rings(state, B, depth)
     states = broadcast_branches(state, B)
     mask = np.ones(F, dtype=bool)
     return rollout_burst(schedule, rings, states, start_frame, branch_bits, status,
-                         mask, mask)
+                         mask, mask, shard)
 
 
 class SpeculativeExecutor:
-    """B-branch × F-frame rollout bound to one schedule and shape."""
+    """B-branch × F-frame rollout bound to one schedule and shape.
+
+    With ``mesh`` alone the branches split over its ``branch_axis``; with
+    ``entity_axis`` (and a ``state_template``, the whole world) each
+    world's entity axis splits too; ``layout`` passes a session's shared
+    :class:`~bevy_ggrs_tpu_torch.parallel.sharding.MeshLayout` instead.
+    Every rank runs :meth:`run` with the same full branch tensor and the
+    same start state (whole, or its rows), and :meth:`commit` on every
+    rank gives the same committed branch."""
 
     def __init__(self, schedule: Schedule, num_branches: int, max_frames: int,
-                 mesh=None, tracer=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a speculative rollout over a device mesh is not ported yet "
-                "(ROADMAP.md, port queue item 8: 'Sharding')")
+                 mesh=None, branch_axis: str = "branch", entity_axis: Optional[str] = None,
+                 state_template: Optional[WorldState] = None, tracer=None, layout=None):
         from bevy_ggrs_tpu_torch.obs.trace import null_tracer
+        from bevy_ggrs_tpu_torch.parallel.sharding import MeshLayout
 
-        self.schedule = schedule
+        if layout is None:
+            layout = MeshLayout(schedule, num_branches, mesh, branch_axis, entity_axis,
+                                state_template)
+        self.layout = layout
+        self.schedule = self.layout.schedule
         self.num_branches = int(num_branches)
         self.max_frames = int(max_frames)
         self.tracer = tracer if tracer is not None else null_tracer
@@ -189,26 +209,32 @@ class SpeculativeExecutor:
         unconfirmed)."""
         host_bits = np.ascontiguousarray(np.asarray(branch_bits))
         b, f = host_bits.shape[0], host_bits.shape[1]
-        if b != self.num_branches or f != self.max_frames:
+        local = self.layout.local_bits(host_bits)
+        if b not in (self.num_branches, local.shape[0]) or f != self.max_frames:
             raise ValueError(f"branch_bits [{b}, {f}, ...] != configured "
                              f"[{self.num_branches}, {self.max_frames}, ...]")
+        state = self.layout.local_world(state)
         device = state.device
         if status is None:
             status = np.full((f, host_bits.shape[2]), PREDICTED, dtype=np.int32)
         with self.tracer.span("spec_branch_dispatch", branches=b, frames=f):
             rings, states, checksums = rollout_branches(
                 self.schedule, state, int(start_frame),
-                torch.as_tensor(host_bits, device=device),
+                torch.as_tensor(np.ascontiguousarray(local), device=device),
                 torch.as_tensor(np.asarray(status, np.int32), device=device),
-                self.max_frames)
+                self.max_frames, self.layout.entity)
         return SpecResult(rings=rings, states=states, checksums=checksums,
                           branch_bits=host_bits, start_frame=int(start_frame),
-                          num_frames=f)
+                          num_frames=f, first_branch=self.layout.first_branch)
 
     def commit(self, result: SpecResult, branch: int):
-        """Copies of branch ``branch``'s ring and state."""
+        """Copies of branch ``branch``'s ring and state (on a
+        branch-sharded mesh, broadcast on every rank from the rank that
+        owns the branch)."""
         with self.tracer.span("spec_branch_commit"):
-            return select_branch(result.rings, branch), select_branch(result.states, branch)
+            if self.layout.branch is None:
+                return select_branch(result.rings, branch), select_branch(result.states, branch)
+            return self.layout.select((result.rings, result.states), branch)
 
 
 _SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}

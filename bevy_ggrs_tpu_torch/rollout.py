@@ -78,12 +78,15 @@ def rollout_burst(
     status: torch.Tensor,  # int32[T, num_players], shared by every branch
     save_mask: np.ndarray,  # bool[T], host
     adv_mask: np.ndarray,  # bool[T], host
+    shard=None,  # an EntityShard: ring and state are its row blocks
 ) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Run the ``T`` steps; returns ``(ring, state, checksums[T, 2])`` with
     ``checksums[t]`` the checksum saved at step ``t`` (0 where
     ``save_mask[t]`` is False). The ring is updated in place. A ``[B]``
     world runs every branch at once on its own ``bits[b]``, into a ``[B,
-    depth]`` stack of rings, with ``checksums[B, T, 2]``."""
+    depth]`` stack of rings, with ``checksums[B, T, 2]``. With ``shard``
+    the saves store the whole world's lanes (:meth:`~bevy_ggrs_tpu_torch.
+    parallel.sharding.EntityShard.save`)."""
     lead = tuple(state.alive.shape[:-1])
     at = (slice(None),) * len(lead)  # the branch axes come before the time axis
     checksums = torch.zeros(lead + (len(save_mask), 2), dtype=torch.int64,
@@ -91,7 +94,10 @@ def rollout_burst(
     frame = int(start_frame)
     for t, (save, adv) in enumerate(zip(save_mask, adv_mask)):
         if save:
-            ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
+            if shard is None:
+                ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
+            else:
+                shard.save(ring, state, frame, out=checksums[at + (t,)])
         if adv:
             st = status[t].expand(lead + tuple(status.shape[1:]))
             state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
@@ -146,11 +152,32 @@ class RolloutExecutor:
     turn each request list into at most one :meth:`run` per
     ``advance_frame``. ``max_frames`` should be ``max_prediction + 2`` so
     the deepest rollback (load + full-window resimulation + the new frame)
-    fits one call."""
+    fits one call.
 
-    def __init__(self, schedule: Schedule, max_frames: int):
-        self.schedule = schedule
+    With ``mesh`` and ``state_template`` (the whole world), or a shared
+    ``layout`` (:class:`~bevy_ggrs_tpu_torch.parallel.sharding.MeshLayout`),
+    the world's entity axis is split over the mesh's entity axis for
+    every call: the state and ring a caller passes are this rank's row blocks
+    (:func:`bevy_ggrs_tpu_torch.parallel.sharding.shard_world`) and stay
+    so for the whole session; systems that couple entities see the whole
+    world through the gather rule
+    (:func:`~bevy_ggrs_tpu_torch.parallel.sharding.shard_schedule`), and
+    the saved lanes are the whole world's. Integer state and the checksum
+    match the unsharded run bitwise; a float system matches when its
+    per-row arithmetic does not depend on the row count (box_game's does
+    not; boids' sharded flock keeps the whole world's launch shapes)."""
+
+    def __init__(self, schedule: Schedule, max_frames: int, mesh=None,
+                 entity_axis: str = "entity", state_template=None, layout=None):
+        from bevy_ggrs_tpu_torch.parallel.sharding import MeshLayout
+
         self.max_frames = int(max_frames)
+        if layout is None:
+            layout = MeshLayout(schedule, 1, mesh, branch_axis=None,
+                                entity_axis=entity_axis, state_template=state_template)
+        self.layout = layout
+        self.shard = layout.entity
+        self.schedule = layout.schedule
 
     def run(
         self,
@@ -190,11 +217,8 @@ class RolloutExecutor:
             start_frame = load_frame
         bits = torch.tensor(np.asarray(bits), device=device)
         status = torch.tensor(np.asarray(status, np.int32), device=device)
-        ring, state, checksums = rollout_burst(
-            self.schedule, ring, state, start_frame, bits, status,
-            mask(save_mask), mask(adv_mask),
-        )
-        return ring, state, checksums
+        return rollout_burst(self.schedule, ring, state, start_frame, bits, status,
+                             mask(save_mask), mask(adv_mask), self.shard)
 
 
 def advance_n(

@@ -46,6 +46,7 @@ from bevy_ggrs_tpu_torch.session.requests import (
 )
 from bevy_ggrs_tpu_torch.state import (
     DEVICE_ID_BASE,
+    SnapshotRing,
     WorldState,
     checksum_breakdown,
     combine64,
@@ -80,9 +81,21 @@ class RollbackRunner:
         tracer=None,
         ledger=None,
         device=None,
+        mesh=None,
+        entity_axis: str = "entity",
     ):
         """``device`` is where the session runs (default ``cuda``, raising
-        when there is no GPU); ``initial_state`` is moved there."""
+        when there is no GPU); ``initial_state`` is moved there.
+
+        With ``mesh`` (a ``DeviceMesh`` from
+        :func:`bevy_ggrs_tpu_torch.parallel.sharding.branch_mesh`), the
+        whole ``initial_state`` is split over the mesh's ``entity_axis``:
+        this rank keeps its row block of the world and the ring for the
+        whole session, and every rank of the entity group must run the
+        same session in lockstep (each burst issues collectives). Saved
+        and reported checksums are the whole world's; :meth:`world`,
+        :meth:`whole_state`, :meth:`whole_ring` and :meth:`diagnose_frame`
+        gather it, and :meth:`adopt` shards a whole world and ring back."""
         self.metrics = metrics if metrics is not None else null_metrics
         self.tracer = tracer if tracer is not None else null_tracer
         self.ledger = ledger if ledger is not None else null_ledger
@@ -94,11 +107,17 @@ class RollbackRunner:
         self.num_players = int(num_players)
         self.input_spec = input_spec
         self.max_prediction = int(max_prediction)
-        self.state = tree_map(lambda x: x.to(self.device), initial_state)
+        whole = tree_map(lambda x: x.to(self.device), initial_state)
+        # The session's one layout on the mesh, shared by its executors.
+        self.layout = self._mesh_layout(schedule, mesh, entity_axis, whole)
+        self.executor = RolloutExecutor(schedule, self.max_prediction + 2,
+                                        layout=self.layout)
+        self.mesh = mesh
+        self._shard = self.layout.entity  # this rank's entity rows, or None
+        self.state = self._own(whole)
         # Ring depth: max_prediction + 1 slack for the save of the frame
         # being left.
         self.ring = ring_init(self.state, self.max_prediction + 1)
-        self.executor = RolloutExecutor(schedule, self.max_prediction + 2)
         self.frame = 0
         self.report_checksums = report_checksums
         self.rollback_frames_total = 0  # resimulated frames
@@ -123,6 +142,39 @@ class RollbackRunner:
         # The speculative runner's as-used input log, frame -> bits (None:
         # not kept).
         self._input_log: Optional[dict] = None
+
+    # ------------------------------------------------------------------
+    # Entity sharding
+
+    def _mesh_layout(self, schedule, mesh, entity_axis, whole):
+        from bevy_ggrs_tpu_torch.parallel.sharding import MeshLayout
+
+        return MeshLayout(schedule, 1, mesh, branch_axis=None, entity_axis=entity_axis,
+                          state_template=whole)
+
+    def _own(self, state: WorldState) -> WorldState:
+        """This rank's rows of a whole world (the world itself off a mesh,
+        or when it already is a row block)."""
+        return self.layout.local_world(state)
+
+    def whole_state(self, state: Optional[WorldState] = None) -> WorldState:
+        """``state`` (default: the live world), whole: gathered from every
+        rank's rows on an entity-sharded mesh (every rank of the group
+        calls this), else the world itself."""
+        return self.layout.whole_world(self.state if state is None else state)
+
+    def whole_ring(self) -> SnapshotRing:
+        """The snapshot ring, whole (gathered as :meth:`whole_state`)."""
+        return self.ring if self._shard is None else self._shard.whole_ring(self.ring)
+
+    def adopt(self, state: WorldState, ring: SnapshotRing) -> None:
+        """Take a whole world and its ring (a checkpoint's, a peer's) as the
+        live ones: this rank keeps its rows on a mesh. The ring's digests
+        are the whole world's, as a sharded ring stores them."""
+        if self._shard is None:
+            self.state, self.ring = state, ring
+        else:
+            self.state, self.ring = self._own(state), self._shard.own_ring(ring)
 
     # ------------------------------------------------------------------
 
@@ -195,7 +247,7 @@ class RollbackRunner:
         n = len(steps)
         if load_frame is not None and self.verify_restores:
             self.restore_guards_total += 1
-            if not integrity.verify_row(self.ring, load_frame):
+            if not integrity.verify_row(self.ring, load_frame, self._shard):
                 # The rollback's target row no longer hashes to its
                 # save-time digest: repair the ring first (raises
                 # StateFault when it cannot), then resimulate from the
@@ -284,7 +336,7 @@ class RollbackRunner:
         which the report's ``bitwise`` flag witnesses through the live
         state's digest. Raises :class:`~bevy_ggrs_tpu_torch.integrity.
         StateFault` when no clean base or no inputs cover the span."""
-        mask = integrity.attest_ring(self.ring)
+        mask = integrity.attest_ring(self.ring, self._shard)
         report = {
             "corrupt_frames": [], "repaired": 0, "repair_frames": 0,
             "bitwise": None, "first_corrupt_field": None,
@@ -323,8 +375,8 @@ class RollbackRunner:
             if got is None:
                 _fail(f"as-used input log does not cover frame {f}")
             used.append(got)
-        before = integrity.host_row(self.ring, corrupt[0] % self.ring.depth)
-        pre_live = integrity._state_digest(self.state).cpu().numpy()
+        before = integrity.host_row(self.whole_ring(), corrupt[0] % self.ring.depth)
+        pre_live = integrity._state_digest(self.state, self._shard).cpu().numpy()
         n = len(used)
         with self.metrics.timer("sdc_repair"), self.tracer.span(
             "sdc_repair", frames=n
@@ -343,8 +395,8 @@ class RollbackRunner:
                     load_frame=base if pos == base else None,
                 )
                 pos += take
-        post_live = integrity._state_digest(self.state).cpu().numpy()
-        after = integrity.host_row(self.ring, corrupt[0] % self.ring.depth)
+        post_live = integrity._state_digest(self.state, self._shard).cpu().numpy()
+        after = integrity.host_row(self.whole_ring(), corrupt[0] % self.ring.depth)
         report["first_corrupt_field"] = integrity.first_corrupt_field(
             before, after
         )
@@ -352,7 +404,7 @@ class RollbackRunner:
         report["repair_frames"] = n
         report["bitwise"] = bool(
             (pre_live == post_live).all()
-            and not integrity.attest_ring(self.ring).any()
+            and not integrity.attest_ring(self.ring, self._shard).any()
         )
         self.sdc_repaired_total += len(corrupt)
         self.metrics.count("sdc_repaired", len(corrupt))
@@ -375,8 +427,9 @@ class RollbackRunner:
     def restore_state(self, frame: int, state: WorldState) -> None:
         """Adopt an external checkpoint: the world becomes a copy of
         ``state`` at driver frame ``frame``, and the ring is re-seeded from
-        it (older rows belong to the abandoned timeline)."""
-        self.state = tree_map(lambda x: x.to(self.device).clone(), state)
+        it (older rows belong to the abandoned timeline). On a mesh
+        ``state`` is the whole world or this rank's rows."""
+        self.state = self._own(tree_map(lambda x: x.to(self.device).clone(), state))
         self.ring = ring_init(self.state, self.max_prediction + 1)
         self.frame = int(frame)
         if self._input_log is not None:
@@ -397,12 +450,13 @@ class RollbackRunner:
         status = np.zeros((0, self.num_players), np.int32)
         # n_frames=0: every step is padding, the live ring/state untouched.
         self.executor.run(self.ring, self.state, 0, bits, status, n_frames=0)
-        integrity.warm(self.ring, state=self.state)
+        integrity.warm(self.ring, state=self.state, shard=self._shard)
 
     def world(self):
         """Host copy of the current world (the only place non-rollback
-        code should read simulated state from)."""
-        return to_host(self.state)
+        code should read simulated state from); the whole world on a
+        mesh."""
+        return to_host(self.whole_state())
 
     # ------------------------------------------------------------------
     # Live-session entity lifecycle (host side)
@@ -418,16 +472,17 @@ class RollbackRunner:
                 f"0..{DEVICE_ID_BASE - 1} (>= DEVICE_ID_BASE is reserved "
                 "for device-minted ids)"
             )
-        alive = self.state.alive.cpu().numpy()
-        rids = self.state.rollback_id.cpu().numpy()
+        live = self.whole_state()
+        alive = live.alive.cpu().numpy()
+        rids = live.rollback_id.cpu().numpy()
         if int(rollback_id) in rids[alive]:
             raise ValueError(f"duplicate rollback_id {rollback_id}")
         free = np.flatnonzero(~alive)
         if free.size == 0:
             raise RuntimeError(f"world capacity {alive.shape[0]} exhausted")
         slot = int(free[0])
-        comps = dict(self.state.components)
-        pres = dict(self.state.present)
+        comps = dict(live.components)
+        pres = dict(live.present)
         for name, value in components.items():
             if name not in comps:
                 raise KeyError(f"component {name!r} not registered")
@@ -437,20 +492,21 @@ class RollbackRunner:
                 comps[name].device)
             pres[name] = pres[name].clone()
             pres[name][slot] = True
-        new_alive = self.state.alive.clone()
+        new_alive = live.alive.clone()
         new_alive[slot] = True
-        rid = self.state.rollback_id.clone()
+        rid = live.rollback_id.clone()
         rid[slot] = int(rollback_id)
-        self.state = self.state.replace(
+        self.state = self._own(live.replace(
             alive=new_alive, rollback_id=rid, components=comps, present=pres,
-        )
+        ))
         return slot
 
     def despawn(self, rollback_id: int) -> bool:
         """Despawn the live entity carrying ``rollback_id``; returns whether
         it existed. Snapshots saved before this call still hold it."""
-        alive = self.state.alive.cpu().numpy()
-        rids = self.state.rollback_id.cpu().numpy()
+        live = self.whole_state()
+        alive = live.alive.cpu().numpy()
+        rids = live.rollback_id.cpu().numpy()
         hits = np.flatnonzero(alive & (rids == int(rollback_id)))
         if hits.size == 0:
             return False
@@ -461,11 +517,11 @@ class RollbackRunner:
             t[slot] = value
             return t
 
-        self.state = self.state.replace(
-            alive=cleared(self.state.alive, False),
-            rollback_id=cleared(self.state.rollback_id, -1),
-            present={n: cleared(p, False) for n, p in self.state.present.items()},
-        )
+        self.state = self._own(live.replace(
+            alive=cleared(live.alive, False),
+            rollback_id=cleared(live.rollback_id, -1),
+            present={n: cleared(p, False) for n, p in live.present.items()},
+        ))
         return True
 
     def diagnose_frame(self, frame: int):
@@ -475,4 +531,4 @@ class RollbackRunner:
         # frame < 0 would collide with the ring's -1 empty-slot sentinel.
         if frame < 0 or ring_frame_at(self.ring, frame) != frame:
             return None
-        return checksum_breakdown(ring_load(self.ring, frame))
+        return checksum_breakdown(self.whole_state(ring_load(self.ring, frame)))

@@ -59,6 +59,10 @@ class Schedule:
     def __init__(self, systems: Sequence[System] = ()):
         self._systems = tuple(systems)
 
+    @property
+    def systems(self) -> Tuple[System, ...]:
+        return self._systems
+
     def __call__(self, state: WorldState, inputs: PlayerInputs) -> WorldState:
         for system in self._systems:
             state = system(state, inputs)

@@ -68,6 +68,7 @@ from bevy_ggrs_tpu_torch.utils.persistence import (
     dumps_runner,
     loads_checkpoint,
     loads_runner,
+    runner_tree,
 )
 
 # Per-chunk payload bytes: small enough that chunk+header stays well under
@@ -86,6 +87,13 @@ def transfer_digest(state) -> int:
     checksum, folded. On a CUDA world this is one launch of the checksum
     kernel; on a CPU world, its plain version."""
     return combine64(checksum(state))
+
+
+def _whole(runner, state):
+    """``state`` of ``runner`` whole: gathered from every rank's rows when
+    the runner is entity-sharded (``RollbackRunner.whole_state``)."""
+    gather = getattr(runner, "whole_state", None)
+    return state if gather is None else gather(state)
 
 
 class Health(enum.Enum):
@@ -474,7 +482,8 @@ class SessionSupervisor:
         (corrections that arrived during the quarantine fold in through the
         normal gather)."""
         session, runner = self.session, self.runner
-        tree, meta = loads_checkpoint(data, {"state": runner.state}, "<state-transfer>")
+        tree, meta = loads_checkpoint(data, {"state": _whole(runner, runner.state)},
+                                      "<state-transfer>")
         state = tree["state"]
         frame = int(meta["frame"])
         if transfer_digest(state) != t["checksum"]:
@@ -512,8 +521,7 @@ class SessionSupervisor:
         until the readmit window has passed (:meth:`input_for`)."""
         session, runner = self.session, self.runner
         # Verify the digest before loads_runner changes anything.
-        tree, _meta = loads_checkpoint(
-            data, {"state": runner.state, "ring": runner.ring}, "<state-transfer>")
+        tree, _meta = loads_checkpoint(data, runner_tree(runner), "<state-transfer>")
         if transfer_digest(tree["state"]) != t["checksum"]:
             raise ValueError("transfer digest mismatch")
         loads_runner(data, runner, session=session)
@@ -571,7 +579,7 @@ class SessionSupervisor:
         if kind == proto.STATE_KIND_FULL:
             if runner.frame != session.current_frame:
                 return None  # not at a tick boundary
-            digest = transfer_digest(runner.state)
+            digest = transfer_digest(_whole(runner, runner.state))
             data = dumps_runner(runner, session=session)
             return data, int(runner.frame), int(digest)
         # STATE_KIND_RING: the newest frame that is saved in the ring,
@@ -587,7 +595,7 @@ class SessionSupervisor:
                 continue
             # A copy of the row, serialized at once: later saves write the
             # ring in place.
-            state = ring_load(runner.ring, frame)
+            state = _whole(runner, ring_load(runner.ring, frame))
             digest = transfer_digest(state)
             data = dumps_checkpoint({"state": state}, {"frame": int(frame)})
             return data, int(frame), int(digest)

@@ -1,6 +1,6 @@
 """SpeculativeRollbackRunner: misprediction recovery as a branch select.
 
-Counterpart of ``bevy_ggrs_tpu/spec_runner.py``, off the device mesh. The
+Counterpart of ``bevy_ggrs_tpu/spec_runner.py``. The
 base :class:`~bevy_ggrs_tpu_torch.runner.RollbackRunner` pays for a
 misprediction after it is detected: the session emits ``[Load(F_bad),
 (Save, Advance) × k]`` and the runner resimulates. This runner spends the
@@ -31,8 +31,15 @@ pure-Python path; the two paths are bitwise equal
 (``tests/test_torch_native_spec.py``). A learned input predictor
 (``predict/``, ``predictor=``) seeds the tree on either path: its rollout
 becomes the tree's base and its first-step ranking the candidate order,
-branch 0 staying the session's forward-fill prediction. Device meshes
-(ROADMAP.md, port queue item 8) raise ``NotImplementedError`` here.
+branch 0 staying the session's forward-fill prediction.
+
+On a device mesh (``mesh=``, both a branch and an entity axis) the runner
+speculates on the same mesh: the rollout's branches split over the branch
+axis and every world's entity axis over the entity axis, as the serial
+executor splits it; every rank runs the same session in lockstep, and the
+attestation checks the sharded programs. ``GGRS_SESSION_AXIS=S`` (off a
+mesh only) runs every tick through the slot-batched tick serving uses
+(``fused.py``'s conformance mode).
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from bevy_ggrs_tpu_torch.parallel.speculate import (
 from bevy_ggrs_tpu_torch.predict.model import resolve_predictor
 from bevy_ggrs_tpu_torch.runner import RollbackRunner, _Step
 from bevy_ggrs_tpu_torch.schedule import Schedule
+from bevy_ggrs_tpu_torch.parallel.sharding import mesh_key
 from bevy_ggrs_tpu_torch.state import (
     WorldState,
     clone_ring,
@@ -251,6 +259,8 @@ def _attestation_key(runner: "SpeculativeRollbackRunner"):
         zeros1 = runner.input_spec.zeros_np(1)
         return (
             runner.device.type,
+            # A meshed runner's verdict is about the sharded programs.
+            mesh_key(runner.mesh),
             # An exhaustive verdict proves more than a standard one: never
             # serve one kind from the other's memo entry.
             os.environ.get("GGRS_ATTEST_EXHAUSTIVE", "0") == "1",
@@ -323,7 +333,8 @@ def attest_speculation_safety(
     status = np.zeros((F, P), np.int32)  # CONFIRMED
     real_checked = 0
     for tensor_bits in (bits, structured):
-        spec_cs = runner._dispatch_rollout(frame, tensor_bits).checksums.cpu().numpy()
+        spec_cs = runner._fused.layout.all_checksums(
+            runner._dispatch_rollout(frame, tensor_bits).checksums).cpu().numpy()
         for b in range(B):
             _, _, checksums = runner.executor.run(scratch, state, frame, tensor_bits[b, :F],
                                                   status, n_frames=F)
@@ -402,17 +413,33 @@ class SpeculativeRollbackRunner(RollbackRunner):
         branch_values=None,
         attest: bool = True,
         mesh=None,
+        entity_axis: str = "entity",
+        branch_axis: str = "branch",
         predictor=None,
         **kwargs,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "speculation over a device mesh is not ported yet (ROADMAP.md, "
-                "port queue item 8: 'Sharding')")
-        super().__init__(schedule, initial_state, max_prediction, num_players,
-                         input_spec, **kwargs)
-        self.spec_frames = int(spec_frames or max_prediction)
+            # Both axes are required: branches split over one, the world's
+            # entity axis over the other.
+            names = tuple(mesh.mesh_dim_names or ())
+            missing = [a for a in (branch_axis, entity_axis) if a not in names]
+            if missing:
+                raise ValueError(
+                    f"speculative runner mesh has axes {names} "
+                    f"but not {missing}: live speculation needs a 2D "
+                    f"({branch_axis!r}, {entity_axis!r}) mesh, e.g. "
+                    f"branch_mesh(entity_shards=E) (dims named "
+                    f"({branch_axis!r}, {entity_axis!r})). Pass "
+                    "branch_axis=/entity_axis= (GGRSPlugin.with_mesh "
+                    "accepts both) if your mesh names them differently, or "
+                    "drop with_speculation for a plain entity-sharded "
+                    "session."
+                )
         self.num_branches = int(num_branches)
+        self._branch_axis = branch_axis
+        super().__init__(schedule, initial_state, max_prediction, num_players,
+                         input_spec, mesh=mesh, entity_axis=entity_axis, **kwargs)
+        self.spec_frames = int(spec_frames or max_prediction)
         if branch_values is not None:
             self._branch_values = list(branch_values)
         elif getattr(input_spec, "values", None):
@@ -426,12 +453,18 @@ class SpeculativeRollbackRunner(RollbackRunner):
         self.speculation_enabled = True
         self._sampler = sampler
         self._spec = SpeculativeExecutor(schedule, self.num_branches, self.spec_frames,
-                                         tracer=self.tracer)
+                                         tracer=self.tracer, layout=self.layout)
         # The tick executor: absorb, serial burst and rollout. speculate()
         # and the attestation run it too (absorb and burst off), so the
         # rollout whose states commit is the rollout that was attested.
-        self._fused = FusedTickExecutor(schedule, self.executor.max_frames,
-                                        self.num_branches, self.spec_frames)
+        # GGRS_SESSION_AXIS=S runs it through the slot-batched tick
+        # (conformance mode); only honored off a mesh.
+        session_axis = 0
+        if mesh is None:
+            session_axis = int(os.environ.get("GGRS_SESSION_AXIS", "0") or "0")
+        self._fused = FusedTickExecutor(
+            schedule, self.executor.max_frames, self.num_branches, self.spec_frames,
+            session_axis=session_axis, layout=self.layout)
         self._generator = torch.Generator().manual_seed(int(seed))
         self._result: Optional[SpecResult] = None
         # Dispatch dedup: the signature of the live rollout.
@@ -501,6 +534,14 @@ class SpeculativeRollbackRunner(RollbackRunner):
         self._seed_memo = None
         self._input_log.clear()
         self._pending_reports.clear()
+
+    def _mesh_layout(self, schedule, mesh, entity_axis, whole):
+        """One layout for the serial, speculative and fused executors:
+        branches over the branch axis, rows over the entity axis."""
+        from bevy_ggrs_tpu_torch.parallel.sharding import MeshLayout
+
+        return MeshLayout(schedule, self.num_branches, mesh, self._branch_axis,
+                          entity_axis, whole)
 
     def warmup(self) -> None:
         """Build the kernels and run each speculative path once (the
@@ -675,7 +716,8 @@ class SpeculativeRollbackRunner(RollbackRunner):
         self.spec_rollouts_total += 1
         self._result = SpecResult(rings=spec_rings, states=spec_states, checksums=spec_cs,
                                   branch_bits=bits, start_frame=int(anchor),
-                                  num_frames=self.spec_frames)
+                                  num_frames=self.spec_frames,
+                                  first_branch=self._fused.layout.first_branch)
         self.ledger.record_rollout(self.num_branches * self.spec_frames)
         self.frame = end
         self.metrics.count("frames_advanced", n_steps)
@@ -896,7 +938,8 @@ class SpeculativeRollbackRunner(RollbackRunner):
         _, _, _, _, spec_rings, spec_states, spec_cs = out
         return SpecResult(rings=spec_rings, states=spec_states, checksums=spec_cs,
                           branch_bits=np.asarray(branch_bits), start_frame=int(anchor),
-                          num_frames=self.spec_frames)
+                          num_frames=self.spec_frames,
+                          first_branch=self._fused.layout.first_branch)
 
     def _known_inputs(self, anchor: int, session):
         """``(known[F, P, ...], mask[F, P])``: inputs already confirmed

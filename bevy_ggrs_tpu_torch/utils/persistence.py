@@ -279,8 +279,13 @@ def _runner_meta(runner, metadata: Optional[Dict], session) -> Dict:
     return meta
 
 
-def _runner_tree(runner) -> Dict:
-    return {"state": runner.state, "ring": runner.ring}
+def runner_tree(runner) -> Dict:
+    """The runner's world and ring, whole: gathered from every rank's rows
+    when the runner is entity-sharded (``RollbackRunner.whole_state``), so
+    a checkpoint is the same file with and without a mesh."""
+    if not hasattr(runner, "whole_state"):
+        return {"state": runner.state, "ring": runner.ring}
+    return {"state": runner.whole_state(), "ring": runner.whole_ring()}
 
 
 def save_runner(path: str, runner, metadata: Optional[Dict] = None, session=None) -> None:
@@ -289,14 +294,14 @@ def save_runner(path: str, runner, metadata: Optional[Dict] = None, session=None
     in-window input and checksum history are part of the resumable whole,
     and a session restarted at frame 0 beside a restored runner breaks the
     save-frame invariant at once."""
-    save_checkpoint(path, _runner_tree(runner), _runner_meta(runner, metadata, session))
+    save_checkpoint(path, runner_tree(runner), _runner_meta(runner, metadata, session))
 
 
 def dumps_runner(runner, metadata: Optional[Dict] = None, session=None) -> bytes:
     """:func:`save_runner` to bytes: the full checkpoint a healthy peer
     serves a restarted one (``STATE_KIND_FULL`` in the supervisor's state
     transfer)."""
-    return dumps_checkpoint(_runner_tree(runner), _runner_meta(runner, metadata, session))
+    return dumps_checkpoint(runner_tree(runner), _runner_meta(runner, metadata, session))
 
 
 def _apply_runner(tree, meta: Dict, runner, session) -> Dict:
@@ -316,8 +321,11 @@ def _apply_runner(tree, meta: Dict, runner, session) -> Dict:
             raise
     # Plain attribute assignment from here on: nothing can raise, so runner
     # and session move to the checkpointed frame together.
-    runner.state = tree["state"]
-    runner.ring = tree["ring"]
+    if hasattr(runner, "adopt"):
+        runner.adopt(tree["state"], tree["ring"])  # this rank's rows on a mesh
+    else:
+        runner.state = tree["state"]
+        runner.ring = tree["ring"]
     runner.frame = frame
     runner.rollbacks_total = int(meta.get("rollbacks_total", 0))
     runner.rollback_frames_total = int(meta.get("rollback_frames_total", 0))
@@ -340,14 +348,14 @@ def restore_runner(path: str, runner, session=None) -> Dict:
     and a failing session restore puts the session back as it was, so a
     caller falling back to an older checkpoint never sees a runner at frame
     N beside a session at frame 0."""
-    tree, meta = load_checkpoint(path, _runner_tree(runner))
+    tree, meta = load_checkpoint(path, runner_tree(runner))
     return _apply_runner(tree, meta, runner, session)
 
 
 def loads_runner(data: bytes, runner, session=None) -> Dict:
     """:func:`restore_runner` from :func:`dumps_runner` bytes: the receiving
     half of the supervisor's full-checkpoint transfer, all or nothing."""
-    tree, meta = loads_checkpoint(data, _runner_tree(runner), "<transfer>")
+    tree, meta = loads_checkpoint(data, runner_tree(runner), "<transfer>")
     return _apply_runner(tree, meta, runner, session)
 
 

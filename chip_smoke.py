@@ -307,14 +307,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    failovers, matches lost, each child's warmup seconds and builds) and a
    ``relay`` line (spectators bitwise, published frames and the read-backs
    they cost, the phase's wall seconds) are printed.
+19. Sharding on ``cuda`` (``parallel/sharding.py``, ``multihost.py``).
+   (a) A world-size-1 NCCL group in this process on ``cuda:0``: an
+   entity-meshed box_game SyncTest (``check_distance`` 7) and two
+   box_game apps speculating on 64 branches x 8 frames on a 1 x 1 mesh
+   (``GGRSPlugin.with_mesh``), each bitwise its unmeshed twin (reported
+   checksum streams, worlds, settled checksums). (b) Two ranks on
+   ``cuda:0`` as processes (NCCL refuses two ranks on one GPU, so the
+   group is gloo and the collectives stage CUDA tensors through host
+   buffers): the box_game SyncTest entity-sharded over both ranks;
+   boids-1,024 SyncTests through ``make_sharded_schedule`` with the f32
+   kernel and with the tensor-core kernel at the whole world's launch
+   shape; one ``kernel="xla"`` frame of 32,768 boids sharded over both
+   ranks; a B = 128 box_game rollout split 64/64 with commits of branches
+   0 and 127 (each owned by the other rank on one rank); each bitwise its
+   unsharded twin on the same rank. (c) ``GGRS_SESSION_AXIS=4``: a
+   speculating box_game SyncTest and a speculating P2P pair, bitwise the
+   singleton. A ``sharding`` line (backends, world sizes, each run's
+   equality, collectives, the phase's wall seconds). Then the four force
+   kernels at B = 70,000 branches (past gridDim.y's 65,535, folded into
+   gridDim.z): branches 0, 65,534, 65,535, 65,536 and the last bitwise
+   their unbatched launches and within tolerance of the plain version
+   (``branch grid`` line).
 
 The kernel counters are set to 0 just before each SyncTest of phases 4, 5,
 8 and 13, each P2P run of phases 10-14 (in the legs' process for 12 and
 14), each boids attestation of phase 11, each piece of phase 15, each
 tick of phase 16 (each run of its server), each bench row and example
-process of phase 17, and phase 18's in-process fleet and relay match (the
+process of phase 17, phase 18's in-process fleet and relay match (the
 children set their own to 0 at the ``rebase_compiles`` command sent just
-before the migration), and
+before the migration), and each sharded run of phase 19 (in its rank's
+process for (b)), and
 read just after (the P2P
 runs read them around each peer's update); launches made to compare a kernel with its plain version are not
 counted. The last three lines are
@@ -4526,6 +4549,607 @@ def fleet_relay_phase(kernels, ts, tck) -> dict:
             "fleet": fleet_line, "relay": relay}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: sharding
+# ---------------------------------------------------------------------------
+
+# Phase 19's sizes on the card, and the small ones its CPU test runs.
+SHARD = dict(sync_frames=48, boids=1024, boids_frames=10, big=32768,
+             rollout=(128, 8), p2p_iters=150, p2p_branches=64,
+             axis=4, axis_frames=48, axis_iters=90, axis_branches=16)
+SHARD_CPU = dict(sync_frames=24, proj_frames=12, boids=64, boids_frames=5, big=256,
+                 rollout=(16, 4), p2p_iters=60, p2p_branches=8,
+                 axis=3, axis_frames=24, axis_iters=60, axis_branches=8)
+SHARD_CD = 7  # the SyncTests' check distance (the boids ones take 4)
+SHARD_DT = 1.0 / 60.0
+
+
+def shard_reports(session) -> list:
+    """Wrap ``report_checksum``: every (frame, checksum) reported, in
+    order."""
+    log = []
+    report = session.report_checksum
+
+    def wrapped(frame, cs):
+        log.append((int(frame), int(cs)))
+        report(frame, cs)
+
+    session.report_checksum = wrapped
+    return log
+
+
+def shard_synctest(device, frames: int, mesh=None, schedule=None, world=None,
+                   keys=sup_keys, players: int = 2, cd: int = SHARD_CD,
+                   input_spec=None) -> dict:
+    """A SyncTest through a :class:`RollbackRunner` (``mesh`` shards its
+    world's entity axis): box_game unless ``schedule``/``world`` say
+    otherwise. Returns the reported checksum stream and the launches."""
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.parallel import sharding
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+
+    spec = input_spec or box_game.INPUT_SPEC
+    runner = RollbackRunner(schedule or box_game.make_schedule(),
+                            world if world is not None
+                            else box_game.make_world(players, device=device).commit(),
+                            max_prediction=8, num_players=players, input_spec=spec,
+                            device=device, mesh=mesh)
+    runner.warmup()
+    session = SyncTestSession(players, spec, check_distance=cd, max_prediction=8)
+    log = shard_reports(session)
+    reset_counts(ops.wrappers())
+    sharding.reset_collectives()
+    for f in range(frames):
+        for h in range(players):
+            session.add_local_input(h, keys(h, f))
+        runner.handle_requests(session.advance_frame(), session)
+    return {"stream": log, "launches": ops.launch_counts(),
+            "collectives": dict(sharding.COLLECTIVES), "world": runner.world()}
+
+
+def shard_worlds_equal(a: dict, b: dict) -> bool:
+    """Two host worlds (``to_host`` dicts) hold the same bytes."""
+    from bevy_ggrs_tpu_torch.state import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(la, lb))
+
+
+def shard_boids_sync(device, n: int, kernel: str, frames: int, mesh=None,
+                     mode=None) -> dict:
+    """A boids-``n`` SyncTest at check distance 4: through
+    ``make_sharded_schedule`` on a mesh, else ``make_schedule``."""
+    from bevy_ggrs_tpu_torch.models import boids
+
+    sched = (boids.make_sharded_schedule(mesh, "entity", kernel, mode) if mesh is not None
+             else boids.make_schedule(kernel, mode))
+    return shard_synctest(device, frames, mesh, sched,
+                          boids.make_world(n, 2, device=device).commit(),
+                          keys=lambda h, f: np.uint8((f + h) % 16), cd=4,
+                          input_spec=boids.INPUT_SPEC)
+
+
+def shard_xla_frame(device, n: int, mesh) -> dict:
+    """One ``kernel="xla"`` frame of an ``n``-boid world, unsharded and
+    sharded over ``mesh``'s entity axis: the whole world's bytes after it
+    and its checksums."""
+    from bevy_ggrs_tpu_torch.models import boids
+    from bevy_ggrs_tpu_torch.ops.checksum import checksum
+    from bevy_ggrs_tpu_torch.parallel import sharding
+    from bevy_ggrs_tpu_torch.rollout import advance_n
+    from bevy_ggrs_tpu_torch.state import combine64, to_host
+
+    state = boids.make_world(n, 2, device=device).commit()
+    bits = torch.tensor([[1, 8]], dtype=torch.uint8, device=device)
+    plain = advance_n(boids.make_schedule("xla"), state, bits)
+    shard = sharding.EntityShard(mesh, "entity", n)
+    sharding.reset_collectives()
+    out = advance_n(boids.make_sharded_schedule(mesh, "entity", "xla"), shard.own(state), bits)
+    cs = combine64(shard.checksum(out))
+    whole = to_host(shard.whole(out))
+    return {"equal": shard_worlds_equal(to_host(plain), whole),
+            "checksum": cs, "plain_checksum": combine64(checksum(plain)),
+            "collectives": dict(sharding.COLLECTIVES)}
+
+
+def shard_rollout(device, B: int, F: int, mesh) -> dict:
+    """A box_game rollout of ``B`` branches x ``F`` frames split over
+    ``mesh``'s branch axis against the unsharded one: every branch's
+    lanes, and commits of the first and the last branch (each owned by
+    another rank on some rank). The launches are those of the sharded
+    rollout and its commits; the twin's and the comparisons' come after
+    they are read."""
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.parallel import sharding
+    from bevy_ggrs_tpu_torch.parallel.speculate import SpeculativeExecutor
+    from bevy_ggrs_tpu_torch.state import combine64
+    from bevy_ggrs_tpu_torch.ops.checksum import checksum
+
+    sched = box_game.make_schedule()
+    state = box_game.make_world(2, device=device).commit()
+    bits = np.random.RandomState(12).randint(0, 16, (B, F, 2)).astype(np.uint8)
+    plain_ex = SpeculativeExecutor(sched, B, F)
+    plain = plain_ex.run(state, 0, bits)
+    reset_counts(ops.wrappers())
+    sharding.reset_collectives()
+    ex = SpeculativeExecutor(sched, B, F, mesh=mesh)
+    res = ex.run(state, 0, bits)
+    lanes = ex.layout.all_checksums(res.checksums)
+    committed = {j: ex.commit(res, j) for j in (0, B - 1)}
+    launches, collectives = ops.launch_counts(), dict(sharding.COLLECTIVES)
+    commits = {}
+    for j, (ring, st) in committed.items():
+        pring, pst = plain_ex.commit(plain, j)
+        commits[j] = (torch.equal(ring.checksums, pring.checksums)
+                      and combine64(checksum(st)) == combine64(checksum(pst)))
+    return {"lanes_equal": torch.equal(lanes.cpu(), plain.checksums.cpu()),
+            "commits_equal": commits, "owner_of_last": ex.layout.branch.owner(B - 1)[0],
+            "launches": launches, "collectives": collectives}
+
+
+def shard_checkpoint(device, frames: int, mesh) -> dict:
+    """Checkpoints and repair of a box_game SyncTest entity-sharded over
+    ``mesh``: its checkpoint (``dumps_runner``, the whole world gathered)
+    against an unsharded twin's; each checkpoint loaded into the other
+    kind of runner, the three runs carried on ``frames`` more frames; then
+    a bit flipped in the first entity rank's ring rows, attested over the
+    group and repaired by resimulation."""
+    from bevy_ggrs_tpu_torch import integrity
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.parallel.sharding import axis_rank
+    from bevy_ggrs_tpu_torch.runner import RollbackRunner
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+    from bevy_ggrs_tpu_torch.utils.persistence import dumps_runner, loads_runner
+
+    def pair(m):
+        runner = RollbackRunner(box_game.make_schedule(),
+                                box_game.make_world(2, device=device).commit(),
+                                max_prediction=8, num_players=2,
+                                input_spec=box_game.INPUT_SPEC, device=device, mesh=m)
+        session = SyncTestSession(2, box_game.INPUT_SPEC, check_distance=SHARD_CD,
+                                  max_prediction=8)
+        return runner, session, shard_reports(session)
+
+    def play(runner, session, f0, f1):
+        for f in range(f0, f1):
+            for h in range(2):
+                session.add_local_input(h, sup_keys(h, f))
+            runner.handle_requests(session.advance_frame(), session)
+
+    sharded, plain = pair(mesh), pair(None)
+    for r, sess, _ in (sharded, plain):
+        play(r, sess, 0, frames)
+    data = [dumps_runner(r, session=sess) for r, sess, _ in (sharded, plain)]
+    meshed_from_plain, plain_from_meshed = pair(mesh), pair(None)
+    loads_runner(data[1], meshed_from_plain[0], meshed_from_plain[1])
+    loads_runner(data[0], plain_from_meshed[0], plain_from_meshed[1])
+    runs = (sharded, plain, meshed_from_plain, plain_from_meshed)
+    for r, sess, _ in runs:
+        play(r, sess, frames, 2 * frames)
+    worlds = [r.world() for r, _, _ in runs]
+    n = len(runs[3][2])  # the reports since the loads
+    tail = [log[len(log) - n:] for _, _, log in runs]
+    runner = sharded[0]
+    if axis_rank(mesh, "entity") == 0:
+        runner.ring, _ = integrity.flip_ring_bit(
+            runner.ring, (runner.frame - 2) % runner.ring.depth, np.random.RandomState(4))
+    report = runner.attest_and_repair()
+    return {"equal": data[0] == data[1]
+            and all(shard_worlds_equal(worlds[0], w) for w in worlds[1:])
+            and all(t == tail[0] for t in tail[1:]) and n > 0
+            and report["repaired"] == 1 and report["bitwise"]
+            and shard_worlds_equal(runner.world(), worlds[0]),
+            "checkpoint_bytes_equal": data[0] == data[1], "repair": report}
+
+
+def shard_box_plugin(device, mesh=None, branches: int = 0):
+    """The box_game app of both peers of :func:`shard_p2p`."""
+    from bevy_ggrs_tpu_torch.app import GGRSPlugin
+    from bevy_ggrs_tpu_torch.models import box_game
+
+    plugin = (GGRSPlugin(box_game.INPUT_SPEC)
+              .with_input_system(lambda h, app: sup_keys(h, app.session.current_frame))
+              .register_rollback_component("translation", shape=(3,))
+              .register_rollback_component("velocity", shape=(3,))
+              .register_rollback_component("player_handle", dtype=torch.int32, default=-1)
+              .register_rollback_resource("frame_count", np.uint32(0))
+              .with_rollback_schedule(box_game.make_schedule())
+              .with_num_players(2)
+              .with_world_capacity(16)
+              .with_setup_system(lambda w, app: box_game.spawn_players(
+                  w, 2, next_id=app.rollback_id_provider.next_id))
+              .with_device(device))
+    if branches:
+        plugin.with_speculation(branches)
+    if mesh is not None:
+        plugin.with_mesh(mesh)
+    return plugin
+
+
+def shard_p2p(device, iters: int, branches: int, mesh=None) -> dict:
+    """Two box_game apps speculating on ``branches`` branches
+    (``GGRSPlugin.with_mesh`` when ``mesh`` is given) over a loopback
+    network at 2.5 frames of latency:
+    the settled checksums of both peers, each peer's hits and its
+    attestation."""
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch.app import SessionType
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.parallel import sharding
+    from bevy_ggrs_tpu_torch.session import PlayerType, SessionBuilder
+    from bevy_ggrs_tpu_torch.transport import LoopbackNetwork
+
+    net = LoopbackNetwork(latency=2.5 * SHARD_DT, seed=21)
+    apps = []
+    for me in range(2):
+        app = shard_box_plugin(device, mesh, branches).build()
+        builder = SessionBuilder(box_game.INPUT_SPEC).with_num_players(2)
+        for h in range(2):
+            builder.add_player(PlayerType.local() if h == me
+                               else PlayerType.remote(("peer", h)), h)
+        app.insert_session(builder.start_p2p_session(
+            net.socket(("peer", me)), clock=lambda: net.now), SessionType.P2P)
+        apps.append(app)
+    reset_counts(ops.wrappers())
+    sharding.reset_collectives()
+    for _ in range(iters):
+        net.advance(SHARD_DT)
+        for app in apps:
+            app.update(net.now)
+    runners = [app.stage.runner for app in apps]
+    settled = sup_settled([app.session for app in apps])
+    return {"settled": {str(f): [int(c) for c in cs] for f, cs in settled.items()},
+            "frames": [app.frame for app in apps],
+            "hits": [r.spec_hits + r.spec_partial_hits for r in runners],
+            "rollbacks": [r.rollbacks_total for r in runners],
+            "attested": [bool(r.attestation.ok) for r in runners],
+            "real_checked": [r.attestation.real_checked for r in runners],
+            "desyncs": sum(e.kind.name == "DESYNC_DETECTED" for app in apps
+                           for e in app.events),
+            "launches": ops.launch_counts(), "collectives": dict(sharding.COLLECTIVES)}
+
+
+def shard_spec_synctest(device, frames: int, branches: int) -> dict:
+    """A box_game SyncTest through a speculating runner's ``tick`` (no
+    session reports: the ring's rows are the stream)."""
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch.models import box_game
+    from bevy_ggrs_tpu_torch.session import SyncTestSession
+    from bevy_ggrs_tpu_torch.spec_runner import SpeculativeRollbackRunner
+    from bevy_ggrs_tpu_torch.state import combine64
+
+    runner = SpeculativeRollbackRunner(
+        box_game.make_schedule(), box_game.make_world(2, device=device).commit(),
+        max_prediction=8, num_players=2, input_spec=box_game.INPUT_SPEC,
+        num_branches=branches, spec_frames=4, seed=3, device=device)
+    runner.warmup()
+    session = SyncTestSession(2, box_game.INPUT_SPEC, check_distance=SHARD_CD,
+                              max_prediction=8)
+    reset_counts(ops.wrappers())
+    stream = []
+    for f in range(frames):
+        for h in range(2):
+            session.add_local_input(h, sup_keys(h, f))
+        runner.tick(session.advance_frame(), max(f - SHARD_CD, -1), None)
+        stream.append(combine64(runner.ring.checksums[f % runner.ring.depth]))
+    return {"stream": stream, "frame": runner.frame,
+            "ring": runner.ring.checksums.cpu().numpy().tolist(),
+            "hits": [runner.spec_hits, runner.spec_misses],
+            "launches": ops.launch_counts()}
+
+
+@contextlib.contextmanager
+def session_axis(s: int):
+    """``GGRS_SESSION_AXIS=s`` while the block builds its runners."""
+    old = os.environ.get("GGRS_SESSION_AXIS")
+    os.environ["GGRS_SESSION_AXIS"] = str(s)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GGRS_SESSION_AXIS"]
+        else:
+            os.environ["GGRS_SESSION_AXIS"] = old
+
+
+# The runs of phase 19 (b) on the card, and the CPU tests' sets.
+SHARD_RUNS = ("box", "boids", "boids_grid", "xla", "rollout", "checkpoint")
+SHARD_RUNS_CPU = SHARD_RUNS + ("boids_extra", "projectiles")
+SHARD_RUNS_2X2 = ("box", "rollout", "p2p")
+
+
+def shard_rank_runs(device, cfg: dict, world: int, runs=SHARD_RUNS) -> dict:
+    """Phase 19 (b) on one rank of ``world`` (every rank runs it in
+    lockstep): each sharded run and its unsharded twin, with the launches
+    and collectives of the sharded run. ``runs`` names them: ``box``
+    (the box_game SyncTest entity-sharded over every rank), ``boids``
+    (pallas and mxu SyncTests through ``make_sharded_schedule``),
+    ``boids_grid`` (the mxu grid mode's, each rank on its slice of the
+    cells), ``boids_extra`` (xla, dense and grid), ``xla`` (one
+    xla frame of ``cfg["big"]`` boids), ``rollout`` (the box_game rollout
+    split over every rank's branch block), ``checkpoint``
+    (:func:`shard_checkpoint` on the entity mesh), ``projectiles`` (its SyncTest
+    through the gather rule), ``p2p`` (a speculating pair on a 2 x k
+    mesh; its unmeshed twin on global rank 0 only)."""
+    from bevy_ggrs_tpu_torch.parallel.sharding import branch_mesh
+
+    entity = branch_mesh(entity_shards=world)
+    branch = branch_mesh(entity_shards=1)
+    out = {}
+    if "box" in runs:
+        sharded = shard_synctest(device, cfg["sync_frames"], entity)
+        plain = shard_synctest(device, cfg["sync_frames"])
+        out["box_synctest"] = {"equal": sharded["stream"] == plain["stream"]
+                               and shard_worlds_equal(sharded["world"], plain["world"]),
+                               "stream": sharded["stream"], "launches": sharded["launches"],
+                               "collectives": sharded["collectives"]}
+    boids_runs = [("pallas", None), ("mxu", None)] if "boids" in runs else []
+    if "boids_grid" in runs:
+        boids_runs.append(("mxu", "grid"))
+    if "boids_extra" in runs:
+        boids_runs += [("xla", None), ("xla", "grid")]
+    for kernel, mode in boids_runs:
+        s = shard_boids_sync(device, cfg["boids"], kernel, cfg["boids_frames"], entity, mode)
+        p = shard_boids_sync(device, cfg["boids"], kernel, cfg["boids_frames"], None, mode)
+        out[f"boids_{kernel}_{mode or 'dense'}"] = {
+            "equal": s["stream"] == p["stream"] and shard_worlds_equal(s["world"], p["world"]),
+            "launches": s["launches"], "collectives": s["collectives"],
+            "world": {k: s["world"]["components"][k].tolist() for k in ("position", "velocity")}}
+    if "xla" in runs:
+        out["xla_frame"] = shard_xla_frame(device, cfg["big"], entity)
+    if "rollout" in runs:
+        out["rollout"] = shard_rollout(device, *cfg["rollout"], branch)
+    if "checkpoint" in runs:
+        out["checkpoint"] = shard_checkpoint(device, cfg["sync_frames"] // 2, entity)
+    if "p2p" in runs:
+        mesh = branch_mesh(entity_shards=world // 2)
+        out["p2p_2x2"] = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"], mesh)
+        if mesh.get_rank() == 0:  # the unmeshed twin issues no collective
+            out["p2p_plain"] = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"])
+    if "projectiles" in runs:
+        from bevy_ggrs_tpu_torch.models import projectiles
+
+        def proj():
+            return projectiles.make_world(2, capacity=32, device=device).commit()
+
+        keys = lambda h, f: np.uint8((f * 3 + h * 5) % 32)  # noqa: E731
+        frames = cfg.get("proj_frames", cfg["sync_frames"])
+        s = shard_synctest(device, frames, entity, projectiles.make_schedule(),
+                           proj(), keys=keys, input_spec=projectiles.INPUT_SPEC)
+        p = shard_synctest(device, frames, None, projectiles.make_schedule(),
+                           proj(), keys=keys, input_spec=projectiles.INPUT_SPEC)
+        out["projectiles"] = {"equal": s["stream"] == p["stream"]
+                              and shard_worlds_equal(s["world"], p["world"]),
+                              "stream": s["stream"], "collectives": s["collectives"]}
+    return out
+
+
+def shard_rank(rank: int, world: int, rdv: str, device: str, cfg: dict, out_dir: str,
+               runs=SHARD_RUNS) -> None:
+    """One rank of phase 19 (b): joins a gloo group through the
+    ``file://`` rendezvous ``rdv``, runs :func:`shard_rank_runs` and writes
+    ``rank<k>.json`` into ``out_dir``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    # A rank that dies leaves the other waiting in a collective: fail in
+    # minutes, not gloo's default half hour.
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        out = shard_rank_runs(device, cfg, world, runs)
+        out["seconds"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_spawn(world: int, device: str, cfg: dict, out_dir: str,
+                runs=SHARD_RUNS) -> list:
+    """Phase 19 (b)'s ranks as processes (``torch.multiprocessing``),
+    ``PYTHONHASHSEED`` pinned so every rank's sessions time alike; their
+    results in rank order."""
+    import torch.multiprocessing as mp
+
+    old = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = "0"
+    try:
+        mp.spawn(shard_rank, args=(world, os.path.join(out_dir, "rdv"), device, cfg,
+                                   out_dir, runs), nprocs=world, join=True)
+    finally:
+        if old is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = old
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def shard_group_one(device: str):
+    """Phase 19 (a)'s world-size-1 group in this process (NCCL on
+    ``cuda``, gloo on ``cpu``), or None when one is already up."""
+    import torch.distributed as dist
+
+    from bevy_ggrs_tpu_torch.parallel import sharding
+
+    if dist.is_initialized():
+        return None
+    sharding.ensure_process_group(device)
+    return dist.get_backend()
+
+
+def shard_branch_grid(tpw, tcg, device: str = "cuda", B: int = 70000, n: int = 32) -> dict:
+    """The four force kernels at ``B`` branches of ``n`` boids (past
+    gridDim.y's 65,535: folded into gridDim.z): branches 0, 65,534, 65,535,
+    65,536 and the last bitwise equal to their unbatched launches and
+    within tolerance of the plain version."""
+    from bevy_ggrs_tpu_torch.models import boids
+
+    params = boids._kernel_params()
+    g = torch.Generator().manual_seed(5)
+    pos = (torch.rand((B, n, 2), generator=g) * 6 - 3).to(device)
+    vel = (torch.rand((B, n, 2), generator=g) * 0.06 - 0.03).to(device)
+    act = (torch.rand((B, n), generator=g) > 0.1).float().to(device)
+    picks = [0, 65534, 65535, 65536, B - 1]
+    out = {}
+    for name, fn, plain in (
+            ("pairwise_force_rows", lambda p, v, a: tpw.pairwise_force_rows(p, v, p, v, a, a, **params),
+             lambda p, v, a: tpw.pairwise_force_rows_plain(p, v, p, v, a, a, **params)),
+            ("pairwise_force_rows_mxu2",
+             lambda p, v, a: tpw.pairwise_force_rows_mxu2(p, v, p, v, a, a, **params),
+             lambda p, v, a: tpw.pairwise_force_rows_mxu2_plain(p, v, p, v, a, a, **params)),
+            ("pairwise_force_square_mxu_tri",
+             lambda p, v, a: tpw.pairwise_force_square_mxu_tri(p, v, a, **params),
+             lambda p, v, a: tpw.pairwise_force_square_mxu_tri_plain(p, v, a, **params))):
+        batched = fn(pos, vel, act)
+        err, bitwise = 0.0, True
+        for b in picks:
+            one = fn(pos[b].contiguous(), vel[b].contiguous(), act[b].contiguous())
+            bitwise &= torch.equal(one, batched[b])
+            ref = plain(pos[b].cpu(), vel[b].cpu(), act[b].cpu())
+            err = max(err, float((batched[b].cpu() - ref).abs().max()))
+        scale = MXU_RANDOM_RTOL * float(batched.abs().max()) if "mxu" in name else FORCE_ATOL
+        check(bitwise and err <= max(scale, FORCE_ATOL),
+              f"branch grid: {name} at B={B}: bitwise {bitwise}, err {err:.3g}")
+        out[name] = {"bitwise": bitwise, "max_abs_err": err}
+    # The cell kernel on random tables: B branches of 2 cells x 4 slots x
+    # 16 candidates.
+    kern = boids.FLOCK_PAIR_KERNEL
+    rows = {k: (torch.rand((B, 2, 4), generator=g) * (2 if k in ("px", "py") else 0.06))
+            .to(device) for k in kern.row_names}
+    rows["active"] = (rows["active"] > 0.01).float()
+    cols = {k: (torch.rand((B, 2, 16), generator=g) * (2 if k in ("px", "py") else 0.06))
+            .to(device) for k in kern.col_names}
+    cols["active"] = (cols["active"] > 0.01).float()
+    batched = torch.stack(tcg.cell_slot_forces(kern, rows, cols), dim=-1)
+    err, bitwise = 0.0, True
+    for b in picks:
+        one = torch.stack(tcg.cell_slot_forces(
+            kern, {k: v[b].contiguous() for k, v in rows.items()},
+            {k: v[b].contiguous() for k, v in cols.items()}), dim=-1)
+        bitwise &= torch.equal(one, batched[b])
+        ref = torch.stack(tcg.cell_slot_forces_plain(
+            kern, {k: v[b].cpu() for k, v in rows.items()},
+            {k: v[b].cpu() for k, v in cols.items()}), dim=-1)
+        err = max(err, float((batched[b].cpu() - ref).abs().max()))
+    check(bitwise and err <= CELL_ATOL,
+          f"branch grid: cell_slot_forces at B={B}: bitwise {bitwise}, err {err:.3g}")
+    out["cell_slot_forces"] = {"bitwise": bitwise, "max_abs_err": err}
+    return out
+
+
+def sharding_phase(device: str = "cuda", cfg=None, out_dir=None, runs=SHARD_RUNS) -> dict:
+    """Phase 19: (a) a world-size-1 group in this process (NCCL on the
+    card): an entity-meshed box_game SyncTest and a speculating P2P pair
+    on a 1 x 1 mesh, each bitwise its unmeshed twin; (b) two ranks over
+    gloo (:func:`shard_spawn`); (c) ``GGRS_SESSION_AXIS`` runs bitwise the
+    singleton. Prints the ``sharding`` line; returns its fields (the
+    launches of the sharded runs by kernel among them) and, under
+    ``ranks``, the results of (b)'s ranks (``runs`` picks them:
+    :func:`shard_rank_runs`)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bevy_ggrs_tpu_torch.parallel.sharding import branch_mesh
+
+    cfg = cfg or SHARD
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + int(v)
+
+    # (a) world size 1 in this process.
+    made = shard_group_one(device)
+    try:
+        backend_a = dist.get_backend()
+        mesh = branch_mesh(entity_shards=1)
+        s = shard_synctest(device, cfg["sync_frames"], mesh)
+        p = shard_synctest(device, cfg["sync_frames"])
+        a_sync = s["stream"] == p["stream"] and shard_worlds_equal(s["world"], p["world"])
+        check(a_sync, "phase 19 (a): the meshed SyncTest is not bitwise the unmeshed one")
+        add(s["launches"])
+        sp = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"], mesh)
+        pp = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"])
+        a_p2p = sp["settled"] == pp["settled"] and len(sp["settled"]) > 0
+        check(a_p2p and sp["desyncs"] == 0 and all(sp["attested"]),
+              f"phase 19 (a): the meshed P2P pair: equal {a_p2p}, desyncs {sp['desyncs']}, "
+              f"attested {sp['attested']}")
+        add(sp["launches"])
+    finally:
+        if made is not None:
+            dist.destroy_process_group()
+    # (b) two ranks over gloo.
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        ranks = shard_spawn(2, device, cfg, tmp, runs)
+    b_equal = {}
+    for name in ranks[0]:
+        if isinstance(ranks[0][name], dict) and "equal" in ranks[0][name]:
+            b_equal[name] = all(r[name]["equal"] for r in ranks)
+    b_equal["rollout"] = all(r["rollout"]["lanes_equal"]
+                             and all(r["rollout"]["commits_equal"].values()) for r in ranks)
+    check(all(b_equal.values()), f"phase 19 (b): not bitwise: {b_equal}")
+    check(ranks[0]["box_synctest"]["stream"] == ranks[1]["box_synctest"]["stream"],
+          "phase 19 (b): the ranks' SyncTest streams differ")
+    for r in ranks:
+        for name in ("box_synctest", "boids_pallas_dense", "boids_mxu_dense",
+                     "boids_mxu_grid", "rollout"):
+            add(r[name]["launches"])
+    check(device != "cuda" or (
+        all(r["boids_mxu_dense"]["launches"]["pairwise_force_rows_mxu2"] > 0 for r in ranks)
+        and all(r["boids_pallas_dense"]["launches"]["pairwise_force_rows"] > 0 for r in ranks)
+        and all(r["boids_mxu_grid"]["launches"]["cell_slot_forces"] > 0 for r in ranks)
+        and all(r["box_synctest"]["launches"]["world_checksum"] > 0 for r in ranks)),
+        "phase 19 (b): a sharded run launched none of its kernels")
+    # (c) the session-axis conformance mode.
+    single = shard_spec_synctest(device, cfg["axis_frames"], cfg["axis_branches"])
+    pair = shard_p2p(device, cfg["axis_iters"], cfg["axis_branches"])
+    with session_axis(cfg["axis"]):
+        axed = shard_spec_synctest(device, cfg["axis_frames"], cfg["axis_branches"])
+        axed_pair = shard_p2p(device, cfg["axis_iters"], cfg["axis_branches"])
+    c_sync = (axed["stream"], axed["ring"], axed["hits"]) == (
+        single["stream"], single["ring"], single["hits"])
+    c_p2p = axed_pair["settled"] == pair["settled"] and axed_pair["hits"] == pair["hits"]
+    check(c_sync and c_p2p, f"phase 19 (c): GGRS_SESSION_AXIS={cfg['axis']} is not "
+                            f"bitwise the singleton: synctest {c_sync}, p2p {c_p2p}")
+    add(axed["launches"])
+    add(axed_pair["launches"])
+    line = {
+        "backends": {"a": backend_a, "b": "gloo (CUDA tensors staged through host buffers)"
+                     if device == "cuda" else "gloo"},
+        "world_sizes": {"a": 1, "b": 2},
+        "a": {"synctest_bitwise": a_sync, "p2p_bitwise": a_p2p,
+              "p2p_hits": sp["hits"], "settled_compared": len(sp["settled"]),
+              "collectives": {"synctest": s["collectives"], "p2p": sp["collectives"]}},
+        "b": {"bitwise": b_equal,
+              "collectives": {k: v["collectives"] for k, v in ranks[0].items()
+                              if isinstance(v, dict) and "collectives" in v},
+              "rank_seconds": [round(r["seconds"], 2) for r in ranks]},
+        "c": {"session_axis": cfg["axis"], "synctest_bitwise": c_sync, "p2p_bitwise": c_p2p},
+        "launches": launches,
+        "wall_s": round(time.perf_counter() - t0, 2),
+    }
+    print("sharding " + json.dumps(line), flush=True)
+    return dict(line, ranks=ranks)
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
@@ -4953,6 +5577,15 @@ def main() -> int:
 
     phase("18 fleet and relay on cuda")
     ck["launches"] += fleet_relay_phase(kernels, ts, tck)["launches"]
+
+    phase("19 sharding on cuda")
+    shard = sharding_phase("cuda")
+    ck["launches"] += shard["launches"]["world_checksum"]
+    forces[1024]["launches"] += shard["launches"]["pairwise_force_rows"]
+    mxu2["launches"] += shard["launches"]["pairwise_force_rows_mxu2"]
+    tri["launches"] += shard["launches"]["pairwise_force_square_mxu_tri"]
+    cell["launches"] += shard["launches"]["cell_slot_forces"]
+    print("branch grid " + json.dumps(shard_branch_grid(tpw, tcg)), flush=True)
     phase(None)
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())

@@ -10,10 +10,11 @@ machinery.
     python examples_torch/model_zoo_synctest.py --model neural_bots
     python examples_torch/model_zoo_synctest.py --model projectiles --device cpu
 
-boids' kernels: ``--kernel pallas`` the f32 force kernel, ``mxu`` the
-tensor-core kernels (the triangle kernel from 4,096 boids); grid mode
-(``GGRS_FORCE_MODE=grid``) routes either through the cell kernel.
-``--kernel xla`` exists for entity sharding, which the port has not yet.
+boids' kernels: ``--kernel xla`` (the default, as in the JAX example)
+JAX's XLA forces in plain PyTorch, ``pallas`` (or ``--pallas``) the f32
+force kernel, ``mxu`` the tensor-core kernels (the triangle kernel from
+4,096 boids); grid mode (``GGRS_FORCE_MODE=grid``) routes the last two
+through the cell kernel and ``xla`` through its plain version.
 """
 
 import argparse
@@ -47,12 +48,7 @@ def main(argv=None) -> int:
 
     if args.model == "boids":
         model = boids
-        kernel = args.kernel or "pallas"
-        try:
-            schedule = boids.make_schedule(kernel=kernel)
-        except NotImplementedError as exc:
-            print(f"model_zoo_synctest: {exc}", file=sys.stderr)
-            return 2
+        schedule = boids.make_schedule(kernel=args.kernel, use_pallas=args.pallas)
         world = boids.make_world(args.entities, args.num_players, device=device)
     elif args.model == "projectiles":
         model = projectiles

@@ -120,14 +120,15 @@ def test_the_bench_never_writes_the_jax_detail_file(tmp_path):
 
 
 def test_waiting_configs_say_what_they_wait_for():
+    """Nothing waits any more: the two configs that waited for the
+    sharding slice are configs, and an unknown name is a KeyError."""
     names = bench_torch.all_configs()
-    assert len(names) == len(set(names)) >= 40
+    assert len(names) == len(set(names)) >= 42
     for name in ("boids_1k_8f_x_128b_xla", "live_multihost_2proc_spmd"):
-        assert name not in names
-        with pytest.raises(NotImplementedError, match="waits for the port's"):
-            bench_torch.run_config(name)
-    assert sorted(bench_torch.WAITING) == ["boids_1k_8f_x_128b_xla",
-                                           "live_multihost_2proc_spmd"]
+        assert name in names
+    assert bench_torch.WAITING == {}
+    with pytest.raises(KeyError, match="unknown config"):
+        bench_torch.run_config("no_such_config")
 
 
 HOST_TIER_CONFIGS = ("relay_fanout_64spec", "relay_tree_1k", "fleet_migrate_S64",

@@ -131,8 +131,16 @@ def test_grid_and_dense_steps_agree():
 
 
 def test_make_schedule_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="[Ss]harding"):
-        tboids.make_schedule(kernel="xla")
+    """``kernel="xla"`` builds (and so does JAX's legacy ``use_pallas``);
+    an unknown kernel or mode still raises."""
+    assert tboids.make_schedule(kernel="xla").systems[1] is tboids.increase_frame_system
+    state = tboids.make_world(16, 2, device="cpu").commit()
+    inputs = PlayerInputs(bits=torch.zeros(2, dtype=torch.uint8),
+                          status=torch.zeros(2, dtype=torch.int32))
+    for legacy, kernel in ((False, "xla"), (True, "pallas")):
+        a = tboids.make_schedule(use_pallas=legacy)(state, inputs)
+        b = tboids.make_schedule(kernel=kernel)(state, inputs)
+        assert torch.equal(a.components["velocity"], b.components["velocity"])
     with pytest.raises(ValueError, match="kernel"):
         tboids.make_schedule(kernel="mosaic")
     with pytest.raises(ValueError, match="mode"):

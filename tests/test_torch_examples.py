@@ -13,8 +13,9 @@ cpu`` / ``--platform cpu``) at 60 frames or fewer.
 - model_zoo: projectiles' final checksum and rollback counts equal JAX's;
   boids (the f32 kernel's plain version against JAX's Pallas kernel in
   interpret mode) and neural_bots have equal rollback counts and positions
-  within the force kernels' tolerance; ``--kernel xla`` gives the sharding
-  message.
+  within the force kernels' tolerance; ``--kernel xla`` (JAX's XLA forces
+  in plain PyTorch) runs, its positions within the same tolerance of
+  JAX's.
 - No example falls back to the CPU: on a machine without CUDA,
   ``--device cuda`` exits non-zero.
 
@@ -235,12 +236,17 @@ def test_model_zoo_matches_jax(capsys):
     procs = {m: start(PORT / "model_zoo_synctest.py", "--device", "cpu", *zoo_args(m, *args))
              for m, args in cases.items()}
     procs["jax"] = jax_zoo(cases)
-    # --kernel xla, in this process meanwhile: the port's sharding message.
+    # --kernel xla, in this process meanwhile: JAX's XLA forces in plain
+    # PyTorch run the same SyncTest.
     assert example_main("model_zoo_synctest.py")(
-        ["--device", "cpu", "--model", "boids", "--kernel", "xla", "--frames", "5"]) != 0
-    err = capsys.readouterr().err
-    assert "sharding" in err and "not ported" in err
+        ["--device", "cpu", *map(str, zoo_args("boids", "--entities", 64, "--kernel", "xla"))]
+    ) == 0
+    xla_out = capsys.readouterr().out
     out = {k: finish(p) for k, p in procs.items()}
+    xla, ref = zoo_line(xla_out, "boids"), zoo_line(out["jax"], "boids")
+    assert all(xla[k] == ref[k] for k in ("frames", "frame_count", "rollbacks", "resimulated"))
+    np.testing.assert_allclose(zoo_positions(xla_out, "boids"),
+                               zoo_positions(out["jax"], "boids"), rtol=0, atol=POSITION_ATOL)
     for model in cases:
         port, ref = zoo_line(out[model], model), zoo_line(out["jax"], model)
         for key in ("frames", "frame_count", "rollbacks", "resimulated"):

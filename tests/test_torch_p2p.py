@@ -492,15 +492,19 @@ def test_app_stage_runs_p2p_and_spectator_sessions():
 
 
 def test_unported_options_raise(monkeypatch):
-    """Meshes still raise; speculation and the input predictor are ported
-    (the predictor's weights' hash is the handshake digest, 0 when off)."""
+    """Every plugin option is ported now: speculation, the input predictor
+    (the predictor's weights' hash is the handshake digest, 0 when off)
+    and meshes (``with_mesh`` records the mesh and its axes and returns
+    the plugin)."""
     from bevy_ggrs_tpu_torch.predict import load_default
 
     monkeypatch.delenv("GGRS_PREDICTOR", raising=False)
     plugin = box_plugin()
     assert plugin.with_speculation(4) is plugin  # ported: builds a speculating stage
-    with pytest.raises(NotImplementedError):
-        plugin.with_mesh(None)
+    mesh = object()
+    assert plugin.with_mesh(mesh, entity_axis="e", branch_axis="b") is plugin
+    assert (plugin.mesh, plugin.entity_axis, plugin.branch_axis) == (mesh, "e", "b")
+    assert plugin.with_mesh(None) is plugin and plugin.mesh is None
     builder = SessionBuilder(box_game.INPUT_SPEC)
     assert builder._config_digest() == 0
     assert builder.with_input_predictor(True) is builder

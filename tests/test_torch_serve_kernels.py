@@ -213,8 +213,14 @@ def test_slot_step_equals_single_steps():
 
 
 def test_force_wrappers_refuse_the_branch_cap():
+    """Branches past gridDim.y's 65,535 fold into gridDim.z: the wrappers
+    no longer refuse them, and the grid covers every branch once."""
+    for b in (1, 8192, 65535, 65536, 70000, 65535 * 3 + 1):
+        tpw.check_branch_cap(b, "pairwise_force_rows")
+        x, y, z = tpw.branch_grid(7, b)
+        # Branch yi + y * zi: every branch gets a block, no z-row is idle.
+        assert (x, y) == (7, min(b, 65535)) and y * (z - 1) < b <= y * z
+    assert tpw.branch_grid(1, 70000) == (1, 65535, 2)
     tpw.check_branch_cap(tpw.MAX_BRANCHES, "pairwise_force_rows")
-    with pytest.raises(ValueError, match="65,535"):
+    with pytest.raises(ValueError, match="gridDim.z"):
         tpw.check_branch_cap(tpw.MAX_BRANCHES + 1, "pairwise_force_rows")
-    # Serving's largest shapes stay under it: 1,024 slots x 8 branches.
-    tpw.check_branch_cap(1024 * 8, "pairwise_force_rows")

@@ -13,6 +13,7 @@ The ledger's outputs equal the JAX ledger's.
 """
 
 import json
+import types
 
 import numpy as np
 import pytest
@@ -571,8 +572,10 @@ def test_boids_mesh_and_predictor_raise(monkeypatch):
     runner.warmup()
     assert runner.attestation.ok and runner.speculation_enabled
     assert runner.attestation.real_checked == 2 * 4
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_runners(mesh=object())
+    # A mesh without the runner's branch axis fails at construction, with
+    # the JAX package's message.
+    with pytest.raises(ValueError, match="live speculation needs a 2D"):
+        make_runners(mesh=types.SimpleNamespace(mesh_dim_names=("entity",)))
     digest = load_default().content_hash
     for predictor in (True, "default"):
         assert make_runners(predictor=predictor)[1]._predictor.content_hash == digest

@@ -258,13 +258,23 @@ def test_rollouts_own_their_tensors():
 
 
 def test_executor_checks_shapes_and_mesh():
+    """Shapes are checked; a mesh is accepted (a 1 x 1 mesh here: the
+    rollout equals the unmeshed one); the session axis and a mesh are
+    exclusive, with the JAX package's ValueError."""
+    from bevy_ggrs_tpu_torch.parallel.sharding import branch_mesh
+
     ex = tspec.SpeculativeExecutor(tbox.make_schedule(), B, F)
     with pytest.raises(ValueError, match="configured"):
         ex.run(tbox.make_world(P, device="cpu").commit(), 0, np.zeros((B, F + 1, P), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tspec.SpeculativeExecutor(tbox.make_schedule(), B, F, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfused.FusedTickExecutor(tbox.make_schedule(), 10, B, F, mesh=object())
+    mesh = branch_mesh(device_type="cpu")
+    state = tbox.make_world(P, device="cpu").commit()
+    bits = np.random.RandomState(2).randint(0, 16, (B, F, P)).astype(np.uint8)
+    meshed = tspec.SpeculativeExecutor(tbox.make_schedule(), B, F, mesh=mesh,
+                                       entity_axis="entity", state_template=state)
+    assert torch.equal(meshed.run(state, 0, bits).checksums, ex.run(state, 0, bits).checksums)
+    tfused.FusedTickExecutor(tbox.make_schedule(), 10, B, F, mesh=mesh)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tfused.FusedTickExecutor(tbox.make_schedule(), 10, B, F, mesh=mesh, session_axis=2)
 
 
 # ---------------------------------------------------------------------------
