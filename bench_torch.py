@@ -1090,7 +1090,7 @@ def _multihost_bench_worker(pid: int, nproc: int, port: str, device: str) -> Non
     P = 2
     frames = int(os.environ.get("GGRS_MULTIHOST_FRAMES", 600))
     paced = os.environ.get("GGRS_LIVE_PACED", "1") != "0"
-    mesh = multihost.global_branch_mesh(entity_shards=nproc)
+    mesh = multihost.global_branch_mesh(entity_shards=nproc, device_type=device)
     session = SyncTestSession(P, box_game.INPUT_SPEC, check_distance=2, max_prediction=4)
     runner = RollbackRunner(box_game.make_schedule(),
                             box_game.make_world(P, device=_dev()).commit(),

@@ -17,6 +17,10 @@ Counterpart of ``bevy_ggrs_tpu/integrity.py``.
 - **Fault injection** (:func:`flip_ring_bit` / :func:`flip_file_bit`):
   ring flips land only in words the checksum covers, so every injection
   is detectable.
+
+A checksum function installed with
+:func:`bevy_ggrs_tpu_torch.state.set_checksum_impl` is the digest of
+every reader here, as it is of every save.
 """
 
 from __future__ import annotations
@@ -26,8 +30,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from bevy_ggrs_tpu_torch.ops.checksum import checksum, world_checksum
-from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, to_numpy, tree_leaves
+from bevy_ggrs_tpu_torch.ops.checksum import guard_plain, world_checksum
+from bevy_ggrs_tpu_torch.state import (
+    SnapshotRing,
+    WorldState,
+    active_checksum,
+    checksum_impl,
+    to_numpy,
+    tree_leaves,
+)
 
 
 class StateFault(RuntimeError):
@@ -53,7 +64,7 @@ def _state_digest(state: WorldState, shard=None) -> torch.Tensor:
     stacked states (the bitwise-repair witness): one launch. ``shard``
     (an ``EntityShard``, here and below): ``state`` is its row block, and
     the digest is the whole world's."""
-    return checksum(state) if shard is None else shard.checksum(state)
+    return active_checksum(state) if shard is None else shard.checksum(state)
 
 
 def ring_digests(ring: SnapshotRing, shard=None) -> torch.Tensor:
@@ -83,6 +94,9 @@ def verify_row(ring: SnapshotRing, frame: int, shard=None) -> bool:
     entity shard: the row's lanes summed over the group, then compared)."""
     if shard is not None:
         return shard.guard(ring, frame)
+    fn = checksum_impl()
+    if fn is not None:
+        return bool(guard_plain(ring, frame, digest=fn).item())
     return bool(world_checksum(None, "guard", ring=ring, frame=frame).item())
 
 

@@ -5,8 +5,8 @@ accelerates on exclusive key presses, gets friction when neither key of a
 pair is held, is speed-clamped to ``MAX_SPEED``, integrates into its
 translation and is clamped to the plane; a ``frame_count`` resource counts
 frames. Every operation is one correctly rounded float32 operation, in the
-JAX step's order, so the two are bitwise equal on the CPU and on a GPU
-(the JAX package's ``step_np`` is the NumPy oracle for both).
+JAX step's order, so the two are bitwise equal on the CPU and on a GPU;
+:func:`step_np` is the NumPy oracle for both.
 
 The systems take a world with leading axes as well: a ``[B, capacity]``
 world (the speculative rollout's branches, where JAX vmaps the step) with
@@ -19,6 +19,7 @@ own rows (``parallel/sharding.py``).
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -178,3 +179,80 @@ def increase_frame_system(state: WorldState, inputs: PlayerInputs) -> WorldState
 def make_schedule() -> Schedule:
     """The example's rollback schedule: move cubes, then count the frame."""
     return Schedule([move_cube_system, increase_frame_system])
+
+
+# ---------------------------------------------------------------------------
+# NumPy twin (the bit-exact determinism oracle)
+# ---------------------------------------------------------------------------
+
+
+def move_cubes_np(
+    translation: np.ndarray,
+    velocity: np.ndarray,
+    handles: np.ndarray,
+    mask: np.ndarray,
+    input_bits: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`move_cube_system` in NumPy, one cube at a time: every
+    operation one float32 operation, in the step's order."""
+    t = translation.astype(np.float32).copy()
+    v = velocity.astype(np.float32).copy()
+    speed = np.float32(MOVEMENT_SPEED)
+    friction = np.float32(FRICTION)
+    max_speed = np.float32(MAX_SPEED)
+    half = np.float32((PLANE_SIZE - CUBE_SIZE) * 0.5)
+    for i in np.flatnonzero(mask):
+        inp = int(input_bits[int(handles[i])])
+        up, down = inp & INPUT_UP, inp & INPUT_DOWN
+        left, right = inp & INPUT_LEFT, inp & INPUT_RIGHT
+        vx, vy, vz = v[i, 0], v[i, 1], v[i, 2]
+        if up and not down:
+            vz = vz - speed
+        if down and not up:
+            vz = vz + speed
+        if not up and not down:
+            vz = vz * friction
+        if left and not right:
+            vx = vx - speed
+        if right and not left:
+            vx = vx + speed
+        if not left and not right:
+            vx = vx * friction
+        vy = vy * friction
+        mag = np.float32(np.sqrt(vx * vx + vy * vy + vz * vz))
+        if mag > max_speed:
+            factor = max_speed / mag
+            vx, vy, vz = vx * factor, vy * factor, vz * factor
+        tx = min(max(t[i, 0] + vx, -half), half)
+        ty = t[i, 1] + vy
+        tz = min(max(t[i, 2] + vz, -half), half)
+        t[i] = [tx, ty, tz]
+        v[i] = [vx, vy, vz]
+    return t, v
+
+
+def step_np(host: Dict[str, np.ndarray], input_bits: np.ndarray) -> Dict[str, np.ndarray]:
+    """One frame of box_game on host arrays (the dict layout of
+    ``state.to_host``): the oracle the step is held to, bitwise."""
+    mask = (
+        host["alive"]
+        & host["present"]["player_handle"]
+        & host["present"]["translation"]
+        & host["present"]["velocity"]
+        & (host["components"]["player_handle"] >= 0)
+    )
+    t, v = move_cubes_np(
+        host["components"]["translation"],
+        host["components"]["velocity"],
+        host["components"]["player_handle"],
+        mask,
+        input_bits,
+    )
+    return {
+        **host,
+        "components": {**host["components"], "translation": t, "velocity": v},
+        "resources": {
+            **host["resources"],
+            "frame_count": np.uint32(host["resources"]["frame_count"] + np.uint32(1)),
+        },
+    }

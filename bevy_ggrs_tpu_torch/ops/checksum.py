@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -120,16 +120,20 @@ def checksum_plain(state: WorldState, resources: bool = True) -> torch.Tensor:
 
 
 def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
-               out: Optional[torch.Tensor] = None, resources: bool = True) -> torch.Tensor:
+               out: Optional[torch.Tensor] = None, resources: bool = True,
+               digest: Optional[Callable[[WorldState], torch.Tensor]] = None) -> torch.Tensor:
     """Plain version of the ``save`` mode: the checksum, a ``copy_`` per
     leaf into ring row ``frame % depth`` (of every ring of a ``[B,
     depth]`` stack, for a ``[B]`` world), the row's frame and digest, and
-    ``out`` when given. Returns the lanes as a tensor of their own."""
+    ``out`` when given. Returns the lanes as a tensor of their own.
+    ``digest`` (default :func:`checksum_plain`) computes the lanes: the
+    save of an installed checksum function
+    (:func:`bevy_ggrs_tpu_torch.state.set_checksum_impl`)."""
     lead = tuple(state.alive.shape[:-1])
     if lead != tuple(ring.frames.shape[:-1]):
         raise ValueError("save takes a world of the ring's structure, leading axes and device")
     row = (slice(None),) * len(lead) + (int(frame) % ring.depth,)
-    cs = checksum_plain(state, resources)
+    cs = checksum_plain(state, resources) if digest is None else digest(state)
     tree_map(lambda r, s: r[row].copy_(s), ring.states, state)
     ring.frames[row] = int(frame)
     ring.checksums[row] = cs
@@ -140,17 +144,20 @@ def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
 
 def save_slots_plain(ring: SnapshotRing, state: WorldState, frames: torch.Tensor,
                      keep: Optional[torch.Tensor] = None,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     digest: Optional[Callable[[WorldState], torch.Tensor]] = None
+                     ) -> torch.Tensor:
     """Plain version of the ``save`` mode over ``[S]`` slots with a frame
     each: what :func:`save_plain` of world ``s`` into ring ``s`` as
     ``frames[s]`` does, for every slot with ``keep[s]`` set (all when
     ``keep`` is None), in batched writes; a slot whose keep is off writes
     nothing and gets lanes 0. Returns ``int64[S, 2]``, also written to
-    ``out`` when given."""
+    ``out`` when given. ``digest`` as in :func:`save_plain`."""
     S = int(frames.shape[0])
     if tuple(state.alive.shape[:-1]) != (S,) or tuple(ring.frames.shape[:-1]) != (S,):
         raise ValueError("a slot save takes an [S] world, [S, depth] rings and int32[S] frames")
-    lanes = checksum_plain(state)  # row s: the checksum of world s alone
+    # Row s: the checksum of world s alone.
+    lanes = checksum_plain(state) if digest is None else digest(state)
     slots = torch.arange(S, device=state.device)
     if keep is not None:
         slots = slots[keep]
@@ -168,13 +175,15 @@ def save_slots_plain(ring: SnapshotRing, state: WorldState, frames: torch.Tensor
     return lanes
 
 
-def guard_plain(ring: SnapshotRing, frame: int) -> torch.Tensor:
+def guard_plain(ring: SnapshotRing, frame: int,
+                digest: Optional[Callable[[WorldState], torch.Tensor]] = None) -> torch.Tensor:
     """Plain version of the ``guard`` mode: ``int32[1]``, 1 when ring row
     ``frame % depth`` does not hold ``frame`` or still hashes to its
-    save-time digest, 0 when it is corrupt."""
+    save-time digest, 0 when it is corrupt. ``digest`` as in
+    :func:`save_plain`."""
     row = int(frame) % ring.depth
     ok = int(ring.frames[row]) != int(frame) or torch.equal(
-        checksum_plain(tree_map(lambda x: x[row], ring.states)),
+        (digest or checksum_plain)(tree_map(lambda x: x[row], ring.states)),
         ring.checksums[row])
     return torch.tensor([int(ok)], dtype=torch.int32, device=ring.frames.device)
 

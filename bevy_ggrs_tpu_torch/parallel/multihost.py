@@ -4,7 +4,8 @@ Counterpart of ``bevy_ggrs_tpu/parallel/multihost.py``. The reference's
 distributed backend is peer-to-peer UDP between full replicas; the scale
 axes this framework adds (speculative branches, sharded entity worlds) run
 on collectives instead. The port runs one process per device under
-``torch.distributed``: NCCL between GPUs, gloo on the CPU.
+``torch.distributed``: NCCL between GPUs, gloo on the CPU when the caller
+names it.
 
 The layout rule is the JAX package's: :func:`global_branch_mesh` puts the
 branch axis outermost, so each process owns a contiguous branch block and
@@ -49,10 +50,10 @@ def initialize(
     full ``init_method`` URL (``file://...``); without it the group reads
     ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE`` from the
     environment, and with none of those set this is the single process
-    ``(0, 1)``. The backend is NCCL when ``device`` (default: ``cuda``
-    when there is a GPU) is ``cuda``, else gloo. ``num_processes <= 1`` is
-    a no-op returning ``(0, 1)``, so a program can call this
-    unconditionally. Raises when more than one process was asked for and
+    ``(0, 1)``. The backend is NCCL when ``device`` is ``cuda`` (the
+    default, raising without a GPU) and gloo when it is ``cpu``.
+    ``num_processes <= 1`` is a no-op returning ``(0, 1)``, so a program
+    can call this unconditionally. Raises when more than one process was asked for and
     the group ended up with one. ``backend`` overrides the choice: several
     processes sharing one GPU take gloo (NCCL refuses two ranks on one
     device)."""
@@ -87,10 +88,13 @@ def global_branch_mesh(
     entity_shards: int = 1,
     branch_axis: str = "branch",
     entity_axis: str = "entity",
+    device_type: Optional[str] = None,
 ):
     """A ``[branch, entity]`` mesh over every process's device, the branch
-    axis outermost so each process owns a contiguous branch block."""
-    return branch_mesh(None, entity_shards, branch_axis, entity_axis)
+    axis outermost so each process owns a contiguous branch block.
+    ``device_type`` as in :func:`~bevy_ggrs_tpu_torch.parallel.sharding.
+    branch_mesh`: without a group, ``cuda`` unless ``"cpu"`` is named."""
+    return branch_mesh(None, entity_shards, branch_axis, entity_axis, device_type)
 
 
 def _rank_and_count() -> Tuple[int, int]:

@@ -56,8 +56,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
-from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, tree_map
+from bevy_ggrs_tpu_torch.ops.checksum import save_plain, world_checksum
+from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, checksum_impl, tree_map
 
 _M32 = 0xFFFFFFFF
 
@@ -76,12 +76,21 @@ def reset_collectives() -> None:
 
 
 def default_device_type() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """``"cuda"``, the device a mesh or group runs on unless the caller
+    names another. Without a GPU this raises: a mesh on the CPU is asked
+    for by name (``device_type="cpu"``), never chosen on its own."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device_type='cpu' to build a "
+            "mesh or process group on the CPU"
+        )
+    return "cuda"
 
 
 def ensure_process_group(device_type: Optional[str] = None) -> None:
     """A world-size-1 process group from a ``HashStore`` when none is
-    initialized: NCCL on ``cuda``, gloo on ``cpu``."""
+    initialized: NCCL on ``cuda`` (the default, raising without a GPU),
+    gloo on ``cpu``."""
     if dist.is_initialized():
         return
     device_type = device_type or default_device_type()
@@ -102,8 +111,8 @@ def branch_mesh(
     ``entity_shards`` ranks along the entity axis, the rest along the
     branch axis. Every rank of the default group calls this, as
     ``torch.distributed`` requires of any new group. Without an
-    initialized group this makes a world-size-1 one
-    (:func:`ensure_process_group`)."""
+    initialized group this makes a world-size-1 one on ``device_type``
+    (:func:`ensure_process_group`: ``cuda`` unless ``"cpu"`` is named)."""
     ensure_process_group(device_type)
     ranks = list(range(dist.get_world_size())) if devices is None else [int(d) for d in devices]
     n = len(ranks)
@@ -402,16 +411,26 @@ class EntityShard:
     def checksum(self, state: WorldState) -> torch.Tensor:
         """The whole world's lanes from this rank's rows (any leading
         axes): one checksum launch, the resources hashed on one rank
-        only, and a sum over the group."""
+        only, and a sum over the group. An installed checksum function
+        (``state.set_checksum_impl``) reads the gathered whole world."""
+        fn = checksum_impl()
+        if fn is not None:
+            return fn(self.whole(state))
         return self.sum_lanes(world_checksum(state, resources=self.hashes_resources))
 
     def save(self, ring: SnapshotRing, state: WorldState, frame: int,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``ring_save`` of this rank's rows: one save launch, then the
         row's digest (and ``out``) rewritten with the whole world's lanes,
-        which it returns."""
-        lanes = self.sum_lanes(world_checksum(state, "save", ring=ring, frame=frame,
-                                              resources=self.hashes_resources))
+        which it returns. With a checksum function installed, the rows are
+        copied and the digest is the function's of the whole world."""
+        fn = checksum_impl()
+        if fn is None:
+            lanes = self.sum_lanes(world_checksum(state, "save", ring=ring, frame=frame,
+                                                  resources=self.hashes_resources))
+        else:
+            lanes = fn(self.whole(state))
+            save_plain(ring, state, frame, digest=lambda _: lanes)
         at = (slice(None),) * (ring.frames.dim() - 1) + (int(frame) % ring.depth,)
         ring.checksums[at] = lanes
         if out is not None:

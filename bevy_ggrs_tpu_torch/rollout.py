@@ -40,6 +40,7 @@ from bevy_ggrs_tpu_torch.schedule import PlayerInputs, Schedule
 from bevy_ggrs_tpu_torch.state import (
     SnapshotRing,
     WorldState,
+    checksum_impl,
     ring_load,
     ring_save,
     signed_view,
@@ -122,8 +123,10 @@ def rollout_burst_slots(
     frame; the others masked) and one ``[S]`` schedule step (a slot whose
     advance is off keeps its state). Returns ``(rings, states,
     checksums[S, T, 2])``, zeros where a slot did not save; the rings are
-    updated in place."""
-    from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
+    updated in place. With a checksum function installed
+    (``state.set_checksum_impl``), each step's save copies the slots'
+    rows and takes that function's digests."""
+    from bevy_ggrs_tpu_torch.ops.checksum import save_slots_plain, world_checksum
 
     save_mask = np.asarray(save_mask, bool)
     adv_mask = np.asarray(adv_mask, bool)
@@ -136,11 +139,15 @@ def rollout_burst_slots(
     keep_d = torch.as_tensor(np.ascontiguousarray(save_mask.T), device=device)
     adv_d = torch.as_tensor(np.ascontiguousarray(adv_mask.T), device=device)
     checksums = torch.zeros((S, T, 2), dtype=torch.int64, device=device)
+    digest = checksum_impl()
     for t in range(T):
         if save_mask[:, t].any():
             keep = None if save_mask[:, t].all() else keep_d[t]
-            world_checksum(states, "save", ring=rings, frames=frames_d[t], keep=keep,
-                           out=checksums[:, t])
+            if digest is None:
+                world_checksum(states, "save", ring=rings, frames=frames_d[t], keep=keep,
+                               out=checksums[:, t])
+            else:
+                save_slots_plain(rings, states, frames_d[t], keep, checksums[:, t], digest)
         if adv_mask[:, t].any():
             new = schedule(states, PlayerInputs(bits=bits[:, t], status=status[:, t]))
             states = new if adv_mask[:, t].all() else select_slots(adv_d[t], new, states)

@@ -15,7 +15,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bevy_ggrs_tpu_torch.state import WorldState, np_dtype
+from bevy_ggrs_tpu_torch.state import WorldState, np_dtype, resolve_device
 
 # ggrs::InputStatus (per player, per frame).
 CONFIRMED = 0
@@ -32,6 +32,12 @@ class InputSpec:
     shape: Tuple[int, ...] = ()
     dtype: torch.dtype = torch.uint8
     values: Optional[Tuple[int, ...]] = None
+
+    def zeros(self, num_players: int, device=None) -> torch.Tensor:
+        """Every player's zero input on ``device`` (default ``cuda``,
+        raising when there is no GPU)."""
+        return torch.zeros((num_players,) + self.shape, dtype=self.dtype,
+                           device=resolve_device(device))
 
     def zeros_np(self, num_players: int) -> np.ndarray:
         return np.zeros((num_players,) + self.shape, dtype=np_dtype(self.dtype))
@@ -50,6 +56,22 @@ class PlayerInputs:
         return self.status.shape[-1]
 
 
+def make_inputs(bits, status=None, device=None) -> PlayerInputs:
+    """:class:`PlayerInputs` from ``bits`` (a tensor, or anything
+    ``torch.as_tensor`` takes) and ``status`` (default: every player
+    confirmed, ``int32[num_players]``), on ``device``: a tensor's own
+    device when ``device`` is None, else the resolved one (``cuda``
+    unless another is named)."""
+    if device is None and isinstance(bits, torch.Tensor):
+        device = bits.device
+    device = resolve_device(device)
+    bits = torch.as_tensor(bits, device=device)
+    if status is None:
+        status = torch.zeros((bits.shape[0],), dtype=torch.int32, device=device)
+    return PlayerInputs(bits=bits, status=torch.as_tensor(status, dtype=torch.int32,
+                                                          device=device))
+
+
 System = Callable[[WorldState, PlayerInputs], WorldState]
 
 
@@ -58,6 +80,11 @@ class Schedule:
 
     def __init__(self, systems: Sequence[System] = ()):
         self._systems = tuple(systems)
+
+    def add_system(self, system: System) -> "Schedule":
+        """Run ``system`` after the schedule's others; returns the schedule."""
+        self._systems += (system,)
+        return self
 
     @property
     def systems(self) -> Tuple[System, ...]:

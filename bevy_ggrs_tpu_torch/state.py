@@ -170,6 +170,12 @@ class ComponentDef:
     dtype: torch.dtype = torch.float32
     default: Any = 0
 
+    def prototype(self, capacity: int, device=None) -> torch.Tensor:
+        """``[capacity, *shape]`` of ``default`` on ``device`` (default
+        ``cuda``, raising when there is no GPU)."""
+        return torch.full((capacity,) + tuple(self.shape), self.default, dtype=self.dtype,
+                          device=resolve_device(device))
+
 
 @dataclasses.dataclass(frozen=True)
 class ResourceDef:
@@ -239,6 +245,10 @@ class WorldState:
     def device(self) -> torch.device:
         return self.alive.device
 
+    def num_alive(self) -> torch.Tensor:
+        """The live slots, an ``int32`` scalar on the world's device."""
+        return self.alive.sum(dtype=torch.int32)
+
     def replace(self, **changes) -> "WorldState":
         return dataclasses.replace(self, **changes)
 
@@ -249,11 +259,7 @@ def init_state(registry: TypeRegistry, capacity: int, device=None) -> WorldState
     return WorldState(
         alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
         rollback_id=torch.full((capacity,), -1, dtype=torch.int32, device=device),
-        components={
-            n: torch.full((capacity,) + d.shape, d.default, dtype=d.dtype,
-                          device=device)
-            for n, d in registry.components.items()
-        },
+        components={n: d.prototype(capacity, device) for n, d in registry.components.items()},
         present={
             n: torch.zeros((capacity,), dtype=torch.bool, device=device)
             for n in registry.components
@@ -556,6 +562,45 @@ def checksum_breakdown(state: WorldState) -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# The checksum hook
+# ---------------------------------------------------------------------------
+
+# A checksum function the user installed (set_checksum_impl); None is the
+# port's own route: the checksum kernel on the card, its plain version on
+# the CPU.
+_checksum_impl: list = [None]
+
+
+def set_checksum_impl(fn: Optional[Callable[[WorldState], torch.Tensor]]) -> None:
+    """Install ``fn`` as the digest of every save (:func:`ring_save`, the
+    serving tier's slot saves, an entity shard's) and of every integrity
+    reader (``bevy_ggrs_tpu_torch.integrity``); None restores the port's
+    own route. ``fn`` takes a world, or a stack of worlds (leading axes
+    before the entity axis), and returns its ``int64[*lead, 2]`` lanes on
+    the world's device, as :func:`bevy_ggrs_tpu_torch.ops.checksum.checksum`
+    does. It stays in force until the next call: nothing installs or
+    removes one on its own."""
+    _checksum_impl[0] = fn
+
+
+def checksum_impl() -> Optional[Callable[[WorldState], torch.Tensor]]:
+    """The installed checksum function, or None for the port's own route."""
+    return _checksum_impl[0]
+
+
+def active_checksum(state: WorldState) -> torch.Tensor:
+    """``state``'s lanes through the installed function, or, with none
+    installed, through :func:`bevy_ggrs_tpu_torch.ops.checksum.checksum`
+    (one kernel launch on the card)."""
+    fn = _checksum_impl[0]
+    if fn is not None:
+        return fn(state)
+    from bevy_ggrs_tpu_torch.ops.checksum import checksum as kernel_checksum
+
+    return kernel_checksum(state)
+
+
+# ---------------------------------------------------------------------------
 # Snapshot ring
 # ---------------------------------------------------------------------------
 
@@ -656,9 +701,14 @@ def ring_save(
     the number of branches
     (:func:`bevy_ggrs_tpu_torch.ops.checksum.world_checksum`): the bytes,
     the frame and the digest of the row in one pass; a CPU state takes its
-    plain version."""
-    from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
+    plain version. With a checksum function installed
+    (:func:`set_checksum_impl`) the row's digest is that function's, and
+    the bytes are copied by ``copy_``."""
+    from bevy_ggrs_tpu_torch.ops.checksum import save_plain, world_checksum
 
+    fn = _checksum_impl[0]
+    if fn is not None:
+        return ring, save_plain(ring, state, frame, out, digest=fn)
     return ring, world_checksum(state, "save", ring=ring, frame=frame, out=out)
 
 

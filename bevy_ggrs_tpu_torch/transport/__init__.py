@@ -14,8 +14,10 @@ on the card. Implementations:
   in-memory transport with virtual time, configurable latency, jitter, and
   seeded packet loss: the injection seam the reference lacks (survey §4
   explicitly calls for it) enabling multi-peer tests in one process.
-- The JAX package's native C++ batched UDP poller is not ported yet
-  (``UdpSocket(use_native=True)`` raises).
+- :class:`UdpSocket`'s receive loop is the native ``recvmmsg`` poller by
+  default (``bevy_ggrs_tpu_torch/native/udp_poller.cpp``, built at first
+  use); ``use_native=False`` or ``GGRS_NO_NATIVE=1`` refuse it and select
+  the Python socket.
 """
 
 from bevy_ggrs_tpu_torch.transport.socket import NonBlockingSocket

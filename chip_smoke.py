@@ -30,6 +30,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``check_distance`` 7, 300 frames, no ``MismatchedChecksum``, and its
    checksum stream bitwise equal to the same run's on the CPU; the
    checksum kernel ran exactly once per save and once per restore guard.
+   Then box_game's step on the card over 500 seeded frames (4 cubes, a
+   held stretch into the speed clamp), read back every 50 frames bitwise
+   the port's own NumPy oracle ``box_game.step_np``; and the checksum
+   hook: ``state.set_checksum_impl(checksum_plain)`` installed, then
+   removed, on the last box_game world and a boids-1,024 world, each time
+   6 saves, the ring's digests, attestation, 4 guards and a live digest,
+   the ring's bytes and every digest bitwise the kernel route's, with 13
+   kernel launches before, none while installed and 13 after (these
+   comparison launches are not counted in the kernel table).
 5. boids SyncTest on ``cuda``: a 1,024-boid flock, 2 players,
    ``check_distance`` 7, 120 frames, no mismatch; the force kernel ran once
    per advanced frame and the checksum kernel once per save and guard. Its
@@ -185,7 +194,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    equal (ids minted, live entities and scores printed; the grid is held
    against the dense cpu run); neural_bots (512 bots, 2 players) for 300
    frames at H = 32 and 60 at H = 256 and 512, their cpu runs a prefix
-   (``BOT_CPU_FRAMES``).
+   (``BOT_CPU_FRAMES``). Every cpu run of this phase (its twins) plays in
+   a child process started after phase 1 (``--model-twins``, on
+   ``TWIN_THREADS`` threads, no GPU), beside the card's runs of phases
+   2-13, which wait for a result only when they compare it.
    Then P2P over phase 10's lossy loopback: projectiles, 4 peers each
    ``with_speculation(64)``, and neural_bots, 2 peers each
    ``with_speculation(32)``, 8 frames, ``MODEL_SPEC_FRAMES`` frames, each
@@ -347,6 +359,7 @@ the kernel table (JSON), the card's name and power limit, and the result
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
@@ -408,7 +421,7 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-_PHASE = {"name": None, "t0": None}
+_PHASE = {"name": None, "t0": None, "walls": {}}
 
 
 def phase(name) -> None:
@@ -416,7 +429,9 @@ def phase(name) -> None:
     (``None`` closes the last)."""
     now = time.perf_counter()
     if _PHASE["name"] is not None:
-        print(f"phase {_PHASE['name'].split()[0]} wall {now - _PHASE['t0']:.1f} s", flush=True)
+        wall = now - _PHASE["t0"]
+        _PHASE["walls"][_PHASE["name"].split()[0]] = round(wall, 1)
+        print(f"phase {_PHASE['name'].split()[0]} wall {wall:.1f} s", flush=True)
     _PHASE.update(name=name, t0=now)
     if name is not None:
         print(f"== {name}", flush=True)
@@ -673,6 +688,104 @@ def device_work(fn) -> dict:
     return {"kernels": [n for n in names if not n.startswith(("Memcpy", "Memset"))],
             "h2d": [n for n in names if "HtoD" in n],
             "d2h": [n for n in names if "DtoH" in n]}
+
+
+def check_box_step(ts, box_game, frames: int = 500, players: int = 4, device: str = "cuda"):
+    """box_game's step on the card (or ``device``) over ``frames`` seeded
+    frames, a held stretch driving the cubes into the speed clamp and the
+    plane's edges, read back every 50 frames and held bitwise to the
+    port's own NumPy oracle (``box_game.step_np``). Returns the last world
+    and the numbers."""
+    from bevy_ggrs_tpu_torch.schedule import make_inputs
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    inputs = rng.randint(0, 16, size=(frames, players)).astype(np.uint8)
+    inputs[100:250] = inputs[100]
+    world = box_game.make_world(players, device=device).commit()
+    host = ts.to_host(world)
+    step = box_game.make_schedule()
+    bits = torch.from_numpy(inputs).to(device)
+    fastest, reads = 0.0, 0
+    for f in range(frames):
+        world = step(world, make_inputs(bits[f]))
+        host = box_game.step_np(host, inputs[f])
+        fastest = max(fastest, float(np.linalg.norm(host["components"]["velocity"], axis=1).max()))
+        if f % 50 == 49 or f == frames - 1:
+            got = ts.to_host(world)
+            for name in ("translation", "velocity"):
+                check(got["components"][name].tobytes() == host["components"][name].tobytes(),
+                      f"box_game step on {device}: {name} differs from step_np at frame {f + 1}")
+            check(int(got["resources"]["frame_count"]) == int(host["resources"]["frame_count"])
+                  == f + 1, f"box_game step on {device}: frame_count at frame {f + 1}")
+            reads += 1
+    check(fastest > 0.049, f"box_game step: the speed clamp was not reached ({fastest})")
+    out = {"frames": frames, "players": players, "reads": reads, "fastest": fastest,
+           "seconds": time.perf_counter() - t0}
+    print(f"box_game step: {frames} frames of {players} cubes on {device} bitwise the port's "
+          f"step_np at {reads} read-backs (fastest cube {fastest:.6f}, the clamp 0.05), "
+          f"{out['seconds']:.2f} s")
+    return world, out
+
+
+def check_checksum_hook(ts, tck, integrity, worlds) -> dict:
+    """``state.set_checksum_impl(checksum_plain)`` installed on the card,
+    then removed, over ``worlds``: 6 saves into a depth-4 ring, the ring's
+    digests, attestation, 4 restore guards and a live digest each time.
+    Ring bytes, frames, digests and answers equal the kernel route's; no
+    kernel launch while the function is installed, and the route's
+    launches again after removal."""
+    t0 = time.perf_counter()
+
+    def run(world):
+        ring = ts.ring_init(world, 4)
+        before = tck.world_checksum.launches
+        lanes = torch.stack([ts.ring_save(ring, world, f)[1] for f in range(6)])
+        digests = integrity.ring_digests(ring)
+        attest = integrity.attest_ring(ring).tolist()
+        guards = [integrity.verify_row(ring, f) for f in range(2, 6)]
+        live = ts.active_checksum(world)
+        if world.device.type == "cuda":
+            torch.cuda.synchronize()
+        return {"ring": ring, "lanes": lanes, "digests": digests, "attest": attest,
+                "guards": guards, "live": live,
+                "launches": tck.world_checksum.launches - before}
+
+    def same(a, b) -> bool:
+        return (all(same_bytes(x, y) for x, y in zip(world_leaves(ts, a["ring"].states),
+                                                     world_leaves(ts, b["ring"].states)))
+                and torch.equal(a["ring"].frames, b["ring"].frames)
+                and torch.equal(a["ring"].checksums, b["ring"].checksums)
+                and all(torch.equal(a[k], b[k]) for k in ("lanes", "digests", "live"))
+                and a["attest"] == b["attest"] and a["guards"] == b["guards"])
+
+    out = {}
+    try:
+        for label, world in worlds:
+            route = run(world)
+            ts.set_checksum_impl(tck.checksum_plain)
+            hooked = run(world)
+            ts.set_checksum_impl(None)
+            again = run(world)
+            check(same(route, hooked) and same(route, again),
+                  f"checksum hook {label}: the installed plain checksum's ring or digests "
+                  f"differ from the kernel's")
+            on_card = world.device.type == "cuda"
+            check(route["launches"] == again["launches"] == 13 * on_card
+                  and hooked["launches"] == 0,
+                  f"checksum hook {label}: kernel launches {route['launches']} with the "
+                  f"route, {hooked['launches']} installed, {again['launches']} removed")
+            check(route["attest"] == [False] * 4 and route["guards"] == [True] * 4,
+                  f"checksum hook {label}: a clean ring attested corrupt")
+            out[label] = {"launches": [route["launches"], hooked["launches"],
+                                       again["launches"]]}
+    finally:
+        ts.set_checksum_impl(None)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"checksum hook: checksum_plain installed then removed, ring bytes, frames, "
+          f"digests, attestation and guards bitwise the kernel's; kernel launches (route, "
+          f"installed, removed) " + json.dumps(out))
+    return out
 
 
 def check_one_launch(ts, tck, integrity, boids) -> None:
@@ -1928,18 +2041,34 @@ def spec_phase(kernels, ts, tck, frames: int = 600, branches: int = SPEC_BRANCHE
                     held_key_runs, device)
 
 
+def p2p_twin(kernels, ts, tck, label: str, make, players: int, frames: int, branches: int,
+             inputs) -> dict:
+    """The CPU run that stands beside a speculating P2P run on the card:
+    ``players`` peers of ``make(branches)`` for ``frames`` frames on the
+    lossy loopback, checked as every run is; returns each peer's
+    confirmed stream, the frames and the seconds."""
+    t0 = time.perf_counter()
+    run = P2PRun(make(branches), "cpu", players, seed=5, frames=frames, inputs=inputs)
+    run.run(kernels, ts, tck, max_seconds=300.0)
+    run.summary(f"{label} {players} peers B={branches} on cpu")
+    return {"streams": [run.confirmed_stream(p) for p in run.peers], "frames": run.frames,
+            "seconds": time.perf_counter() - t0}
+
+
 def spec_p2p(kernels, ts, tck, label: str, make, players: int, frames: int, branches: int,
              inputs, device: str = "cuda", attestation: bool = False,
-             cpu_frames: int = 0) -> dict:
+             cpu_twin=None) -> dict:
     """``players`` peers, each speculating with ``branches`` branches
     (``make(spec)`` gives the run's ``make_app``), over the lossy loopback
     on the input system ``inputs``, against the same run with speculation
-    off and (on the card) the same run on the CPU, for ``cpu_frames``
-    frames when given (its stream is compared over the frames it
-    confirmed, at least ``TWIN_COMMON_FRAMES`` of them): no desync, a
-    hit on each peer, the confirmed streams bitwise equal, and on the
-    card the checksum kernel F times a rollout besides the serial saves
-    and guards. With ``attestation``, every
+    off and (on the card) the same run on the CPU: no desync, a hit on
+    each peer, the confirmed streams bitwise equal, and on the card the
+    checksum kernel F times a rollout besides the serial saves and
+    guards. ``cpu_twin`` (on the card) returns that CPU run's
+    :func:`p2p_twin` result, played elsewhere and maybe shorter (its
+    stream is compared over the frames it confirmed, at least
+    ``TWIN_COMMON_FRAMES`` of them), in place of playing it here. With
+    ``attestation``, every
     peer's warmup attestation covered every branch of both tensors."""
     on_card = device == "cuda"
     card = smi() if on_card else "cpu"
@@ -1966,16 +2095,20 @@ def spec_p2p(kernels, ts, tck, label: str, make, players: int, frames: int, bran
               f"{label} peer {i}: attestation {att}")
     streams = {"on": [on_run.confirmed_stream(p) for p in on_run.peers],
                "off": [off_run.confirmed_stream(p) for p in off_run.peers]}
-    others = [("off", off_run)]
+    others = [("off", off_run.frames)]
     if on_card:
         t0 = time.perf_counter()
-        cpu_run, _ = play(branches, "cpu", cpu_frames or frames)
-        streams["cpu"] = [cpu_run.confirmed_stream(p) for p in cpu_run.peers]
-        others.append(("cpu", cpu_run))
-        print(f"{label}: the cpu run of {cpu_run.frames} frames took "
-              f"{time.perf_counter() - t0:.1f} s")
-    for name, other in others:
-        need = min(30, min(frames, other.frames) // 20)  # exchanges: one every 8 frames
+        if cpu_twin is None:
+            twin = p2p_twin(kernels, ts, tck, label, make, players, frames, branches, inputs)
+        else:
+            twin = cpu_twin()
+        streams["cpu"] = twin["streams"]
+        others.append(("cpu", twin["frames"]))
+        print(f"{label}: the cpu run of {twin['frames']} frames took {twin['seconds']:.1f} s"
+              + ("" if cpu_twin is None else
+                 f" in the twins' process, {time.perf_counter() - t0:.1f} s waited for here"))
+    for name, other_frames in others:
+        need = min(30, min(frames, other_frames) // 20)  # exchanges: one every 8 frames
         if name == "cpu":
             need = max(need, TWIN_COMMON_FRAMES)
         for i, (a, b) in enumerate(zip(streams["on"], streams[name])):
@@ -2787,58 +2920,236 @@ def time_batched_save(ts, tck, label: str, worlds, depth: int, serial: bool = Fa
     return m
 
 
-def model_synctest(kernels, ts, tck, label: str, make, frames: int, cpu_frames=None,
-                   cpu_stream=None) -> dict:
-    """A SyncTest of ``make(device)`` at ``check_distance`` 7 on the card:
+def model_synctest(kernels, ts, tck, label: str, make, frames: int, cpu_stream) -> dict:
+    """A SyncTest of ``make("cuda")`` at ``check_distance`` 7 on the card:
     no mismatch, the checksum kernel once per save and guard, and its
-    stream bitwise the cpu's. The cpu plays ``cpu_frames`` (default
-    ``frames``) and its stream, a prefix of a longer run's, is compared
-    over its length; ``cpu_stream`` (a run known to give the same stream)
-    stands in for a cpu run."""
+    stream bitwise the cpu's: ``cpu_stream``, a cpu run's stream (a
+    prefix of a longer run's is compared over its length), or a function
+    returning one played elsewhere (:class:`ModelTwins`)."""
     from bevy_ggrs_tpu_torch.app import SessionType
     from bevy_ggrs_tpu_torch.session import SyncTestSession
 
-    out = {}
-    runs = [("cuda", frames)] + ([] if cpu_stream else [("cpu", cpu_frames or frames)])
-    for dev, n in runs:
-        t0 = time.perf_counter()
-        app = make(dev)
-        spec = app.stage.runner.input_spec
-        players = app.stage.runner.num_players
-        if dev == "cuda":
-            reset_counts(kernels)
-        log, ticks = drive(app, SyncTestSession(players, spec, check_distance=7),
-                           SessionType.SYNC_TEST, n)
-        if dev == "cuda":
-            launches = {fn.__name__: fn.launches for fn in kernels}
-            words = check_checksum_launches(label, tck, launches, log, app.stage.runner)
-            check(all(v == 0 for k, v in launches.items() if k != "world_checksum"),
-                  f"{label}: a force kernel ran: {launches}")
-        out[dev] = {"app": app, "log": log, "ticks": ticks,
-                    "seconds": time.perf_counter() - t0}
-    out["stream"] = out["cuda"]["log"]["checksums"]
-    out["cpu_stream"] = cpu_stream or out["cpu"]["log"]["checksums"]
-    check(len(out["cpu_stream"]) > 0
-          and out["stream"][:len(out["cpu_stream"])] == out["cpu_stream"],
+    t0 = time.perf_counter()
+    app = make("cuda")
+    runner = app.stage.runner
+    reset_counts(kernels)
+    log, ticks = drive(app, SyncTestSession(runner.num_players, runner.input_spec,
+                                            check_distance=7),
+                       SessionType.SYNC_TEST, frames)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    words = check_checksum_launches(label, tck, launches, log, runner)
+    check(all(v == 0 for k, v in launches.items() if k != "world_checksum"),
+          f"{label}: a force kernel ran: {launches}")
+    seconds = time.perf_counter() - t0
+    if callable(cpu_stream):
+        cpu_stream = cpu_stream()
+    check(len(cpu_stream) > 0 and log["checksums"][:len(cpu_stream)] == cpu_stream,
           f"{label}: the checksum stream on cuda differs from the cpu's")
-    out["launches"] = launches
-    cpu = (f"{out['cpu']['seconds']:.1f} s on the cpu ({cpu_frames or frames} frames)"
-           if "cpu" in out else "the cpu stream given")
-    print(f"{label}: {frames} frames, {out['cuda']['log']['saves']} saves, "
-          f"{len(out['stream'])} checksums, the first {len(out['cpu_stream'])} bitwise the "
-          f"cpu's, {words}, ticks {json.dumps(tick_stats(out['cuda']['ticks']))}; "
-          f"{out['cuda']['seconds']:.1f} s on cuda, {cpu}")
+    print(f"{label}: {frames} frames, {log['saves']} saves, {len(log['checksums'])} "
+          f"checksums, the first {len(cpu_stream)} bitwise the cpu's, {words}, ticks "
+          f"{json.dumps(tick_stats(ticks))}; {seconds:.1f} s on cuda")
+    return {"cuda": {"app": app, "log": log, "ticks": ticks, "seconds": seconds},
+            "stream": log["checksums"], "cpu_stream": cpu_stream, "launches": launches}
+
+
+def model_twin_jobs(sync_frames: int = 300, wide_frames: int = 60, bots: int = BOTS,
+                    branches=(PROJECTILE_BRANCHES, BOT_BRANCHES),
+                    p2p_frames=MODEL_CPU_FRAMES) -> list:
+    """Phase 13's cpu twins, in the order the card's runs need them: the
+    SyncTests' (projectiles dense; neural_bots at each hidden width, a
+    prefix of the card's frames) and the speculating P2P runs' (at
+    :data:`MODEL_CPU_FRAMES`)."""
+    jobs = [{"kind": "sync", "label": "projectiles_dense", "model": "projectiles",
+             "mode": "dense", "hidden": 32, "bots": bots, "frames": sync_frames}]
+    for h in BOT_HIDDEN:
+        first = h == BOT_HIDDEN[0]
+        jobs.append({"kind": "sync", "label": f"neural_bots_H{h}", "model": "neural_bots",
+                     "mode": None, "hidden": h, "bots": bots,
+                     "frames": min(BOT_CPU_FRAMES[0 if first else 1],
+                                   sync_frames if first else wide_frames)})
+    for k, (model, players) in enumerate((("projectiles", PROJECTILE_PLAYERS),
+                                          ("neural_bots", BOT_PLAYERS))):
+        jobs.append({"kind": "p2p", "label": f"spec {model}", "model": model,
+                     "players": players, "frames": p2p_frames[k],
+                     "branches": branches[k], "bots": bots})
+    return jobs
+
+
+def model_twin(kernels, ts, tck, job: dict) -> dict:
+    """One job of :func:`model_twin_jobs`, on the CPU: a SyncTest's
+    checksum stream, or a P2P run's :func:`p2p_twin` result; JSON-ready."""
+    t0 = time.perf_counter()
+    if job["kind"] == "sync":
+        from bevy_ggrs_tpu_torch.app import SessionType
+        from bevy_ggrs_tpu_torch.session import SyncTestSession
+
+        app = model_app("cpu", job["model"], mode=job["mode"], hidden=job["hidden"],
+                        bots=job["bots"])
+        runner = app.stage.runner
+        log, _ = drive(app, SyncTestSession(runner.num_players, runner.input_spec,
+                                            check_distance=7),
+                       SessionType.SYNC_TEST, job["frames"])
+        out = {"stream": [[int(f), int(cs)] for f, cs in log["checksums"]]}
+    else:
+        keys = PROJECTILE_KEYS if job["model"] == "projectiles" else BOT_KEYS
+
+        def make(spec):
+            return lambda dev, inputs: model_app(dev, job["model"], inputs, speculation=spec,
+                                                 bots=job["bots"])
+
+        twin = p2p_twin(kernels, ts, tck, job["label"], make, job["players"], job["frames"],
+                        job["branches"], key_script(keys))
+        out = {"streams": [[[int(f), int(cs)] for f, cs in st.items()]
+                           for st in twin["streams"]], "frames": twin["frames"]}
+    out.update(label=job["label"], seconds=time.perf_counter() - t0)
     return out
+
+
+def model_twins_child(argv) -> int:
+    """``chip_smoke.py --model-twins OUT CONFIG``: the jobs of ``CONFIG``
+    (JSON: ``threads``, ``jobs`` from :func:`model_twin_jobs`) on the CPU
+    with ``threads`` threads, each result appended to ``OUT`` as a JSON
+    line as soon as it is done."""
+    out_path, cfg = argv[0], json.loads(argv[1])
+    torch.set_num_threads(int(cfg["threads"]))
+    sys.path.insert(0, str(ROOT))
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch import state as ts
+    from bevy_ggrs_tpu_torch.ops import checksum as tck
+
+    kernels = ops.wrappers()
+    t0 = time.perf_counter()
+    for job in cfg["jobs"]:
+        result = model_twin(kernels, ts, tck, job)
+        result["since_start"] = time.perf_counter() - t0
+        with open(out_path, "a") as f:
+            f.write(json.dumps(result) + "\n")
+        print(f"twin {job['label']}: {result['seconds']:.1f} s", flush=True)
+    return 0
+
+
+# Phase 13's cpu twins run in a child process beside the card's runs of
+# phases 2-13, on this many of the host's 8 cores (the card's runs
+# dispatch from one).
+TWIN_THREADS = 4
+TWIN_SECONDS = 1000.0
+
+
+class ModelTwins:
+    """The child process (:func:`model_twins_child`) that plays phase 13's
+    cpu twins while this process drives the card; :meth:`stream` and
+    :meth:`p2p` wait for one job's result. The child sees no GPU."""
+
+    def __init__(self, jobs, threads: int = TWIN_THREADS):
+        import tempfile
+
+        self.closed = False
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_twins_")
+        self.out = os.path.join(self.dir, "twins.jsonl")
+        self.log_path = os.path.join(self.dir, "twins.log")
+        self.threads = threads
+        self.results = {}
+        self.t0 = time.perf_counter()
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--model-twins", self.out,
+                 json.dumps({"threads": threads, "jobs": jobs})],
+                env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+    def _read(self) -> None:
+        if os.path.exists(self.out):
+            with open(self.out) as f:
+                for line in f:
+                    if line.endswith("\n"):
+                        r = json.loads(line)
+                        self.results[r["label"]] = r
+
+    def log_tail(self, n: int = 4000) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-n:]
+
+    def result(self, label: str) -> dict:
+        t0 = time.perf_counter()
+        while True:
+            self._read()
+            if label in self.results:
+                break
+            if self.proc.poll() is not None:
+                self._read()
+                check(label in self.results, f"the twins' process ended (rc "
+                                             f"{self.proc.returncode}) without {label}: "
+                                             f"{self.log_tail()}")
+                break
+            check(time.perf_counter() - self.t0 < TWIN_SECONDS,
+                  f"the twins' process took over {TWIN_SECONDS} s: {self.log_tail()}")
+            time.sleep(0.2)
+        r = self.results[label]
+        print(f"twin {label}: {r['seconds']:.1f} s in the twins' process, "
+              f"{time.perf_counter() - t0:.1f} s waited for here")
+        return r
+
+    def stream(self, label: str) -> list:
+        return [tuple(x) for x in self.result(label)["stream"]]
+
+    def p2p(self, label: str) -> dict:
+        r = self.result(label)
+        return {"streams": [{f: cs for f, cs in st} for st in r["streams"]],
+                "frames": r["frames"], "seconds": r["seconds"]}
+
+    def close(self, ok: bool = True) -> None:
+        """Wait for the child's end (kill it at once unless ``ok``, or past
+        its time), then remove its files. A second call does nothing."""
+        import shutil
+
+        if self.closed:
+            return
+        self.closed = True
+        if not ok:
+            self.proc.kill()
+        try:
+            self.proc.wait(timeout=max(1.0, TWIN_SECONDS - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        rc = self.proc.returncode
+        tail = self.log_tail()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        if ok:
+            check(rc == 0, f"the twins' process: rc {rc}: {tail}")
+            last = max((r["since_start"] for r in self.results.values()), default=0.0)
+            print(f"twins' process: {len(self.results)} jobs in "
+                  f"{sum(r['seconds'] for r in self.results.values()):.1f} s, the last done "
+                  f"{last:.1f} s after its start, on {self.threads} threads")
 
 
 def models_phase(kernels, ts, tck, integrity, device: str = "cuda", sync_frames: int = 300,
                  wide_frames: int = 60, spec_frames: int = MODEL_SPEC_FRAMES,
-                 bots: int = BOTS, branches=(PROJECTILE_BRANCHES, BOT_BRANCHES)) -> dict:
+                 bots: int = BOTS, branches=(PROJECTILE_BRANCHES, BOT_BRANCHES),
+                 twins=None) -> dict:
     """Phase 13 (on the card: the exact primitives, the checksum and the
     batched save on both models' worlds, and the SyncTests, first). Then
     the P2P runs, ``device="cpu"`` runs them alone at a small size: the
     projectiles and neural_bots peers speculating, against speculation off
-    and (on the card) the cpu."""
+    and (on the card) the cpu. On the card the cpu twins play in a child
+    process: ``twins`` (a :class:`ModelTwins` of :func:`model_twin_jobs`
+    at these sizes, started earlier), or one started here."""
+    if device != "cuda":
+        return _models_phase(kernels, ts, tck, integrity, device, sync_frames, wide_frames,
+                             spec_frames, bots, branches, None)
+    twins = twins or ModelTwins(model_twin_jobs(sync_frames, wide_frames, bots, branches))
+    try:
+        out = _models_phase(kernels, ts, tck, integrity, device, sync_frames, wide_frames,
+                            spec_frames, bots, branches, twins)
+    except BaseException:
+        twins.close(ok=False)
+        raise
+    twins.close()
+    return out
+
+
+def _models_phase(kernels, ts, tck, integrity, device, sync_frames, wide_frames, spec_frames,
+                  bots, branches, twins) -> dict:
     from bevy_ggrs_tpu_torch.ops import exact as tx
     from bevy_ggrs_tpu_torch.state import DEVICE_ID_BASE
 
@@ -2867,7 +3178,8 @@ def models_phase(kernels, ts, tck, integrity, device: str = "cuda", sync_frames:
             sync[f"projectiles_{mode}"] = model_synctest(
                 kernels, ts, tck, f"projectiles {mode}",
                 lambda dev, mode=mode: model_app(dev, "projectiles", mode=mode), sync_frames,
-                cpu_stream=sync["projectiles_dense"]["cpu_stream"] if mode == "grid" else None)
+                cpu_stream=sync["projectiles_dense"]["cpu_stream"] if mode == "grid"
+                else lambda: twins.stream("projectiles_dense"))
         check(sync["projectiles_dense"]["stream"] == sync["projectiles_grid"]["stream"],
               "projectiles: the dense stream differs from the grid stream")
         world = sync["projectiles_dense"]["cuda"]["app"].world()
@@ -2881,7 +3193,7 @@ def models_phase(kernels, ts, tck, integrity, device: str = "cuda", sync_frames:
                 kernels, ts, tck, f"neural_bots {bots} H={h}",
                 lambda dev, h=h: model_app(dev, "neural_bots", hidden=h, bots=bots),
                 sync_frames if h == BOT_HIDDEN[0] else wide_frames,
-                cpu_frames=BOT_CPU_FRAMES[0] if h == BOT_HIDDEN[0] else BOT_CPU_FRAMES[1])
+                cpu_stream=lambda h=h: twins.stream(f"neural_bots_H{h}"))
             pos = sync[f"neural_bots_H{h}"]["cuda"]["app"].world()["components"]["position"]
             check(pos.shape == (bots, 2) and np.isfinite(pos).all(), f"neural_bots H={h}")
         out["sync"] = {k: {"launches": v["launches"], "ticks": tick_stats(v["cuda"]["ticks"]),
@@ -2898,11 +3210,11 @@ def models_phase(kernels, ts, tck, integrity, device: str = "cuda", sync_frames:
     out["projectiles_p2p"] = spec_p2p(kernels, ts, tck, "spec projectiles", projectiles_make,
                                       PROJECTILE_PLAYERS, spec_frames, branches[0],
                                       key_script(PROJECTILE_KEYS), device, attestation=True,
-                                      cpu_frames=MODEL_CPU_FRAMES[0])
+                                      cpu_twin=twins and (lambda: twins.p2p("spec projectiles")))
     out["neural_bots_p2p"] = spec_p2p(kernels, ts, tck, "spec neural_bots", bots_make,
                                       BOT_PLAYERS, spec_frames, branches[1],
                                       key_script(BOT_KEYS), device, attestation=True,
-                                      cpu_frames=MODEL_CPU_FRAMES[1])
+                                      cpu_twin=twins and (lambda: twins.p2p("spec neural_bots")))
     return out
 
 
@@ -4878,8 +5190,8 @@ def shard_rank_runs(device, cfg: dict, world: int, runs=SHARD_RUNS) -> dict:
     mesh; its unmeshed twin on global rank 0 only)."""
     from bevy_ggrs_tpu_torch.parallel.sharding import branch_mesh
 
-    entity = branch_mesh(entity_shards=world)
-    branch = branch_mesh(entity_shards=1)
+    entity = branch_mesh(entity_shards=world, device_type=device)
+    branch = branch_mesh(entity_shards=1, device_type=device)
     out = {}
     if "box" in runs:
         sharded = shard_synctest(device, cfg["sync_frames"], entity)
@@ -4907,7 +5219,7 @@ def shard_rank_runs(device, cfg: dict, world: int, runs=SHARD_RUNS) -> dict:
     if "checkpoint" in runs:
         out["checkpoint"] = shard_checkpoint(device, cfg["sync_frames"] // 2, entity)
     if "p2p" in runs:
-        mesh = branch_mesh(entity_shards=world // 2)
+        mesh = branch_mesh(entity_shards=world // 2, device_type=device)
         out["p2p_2x2"] = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"], mesh)
         if mesh.get_rank() == 0:  # the unmeshed twin issues no collective
             out["p2p_plain"] = shard_p2p(device, cfg["p2p_iters"], cfg["p2p_branches"])
@@ -5080,7 +5392,7 @@ def sharding_phase(device: str = "cuda", cfg=None, out_dir=None, runs=SHARD_RUNS
     made = shard_group_one(device)
     try:
         backend_a = dist.get_backend()
-        mesh = branch_mesh(entity_shards=1)
+        mesh = branch_mesh(entity_shards=1, device_type=device)
         s = shard_synctest(device, cfg["sync_frames"], mesh)
         p = shard_synctest(device, cfg["sync_frames"])
         a_sync = s["stream"] == p["stream"] and shard_worlds_equal(s["world"], p["world"])
@@ -5153,6 +5465,8 @@ def sharding_phase(device: str = "cuda", cfg=None, out_dir=None, runs=SHARD_RUNS
 def main() -> int:
     if sys.argv[1:2] == ["--config5"]:
         return config5_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--model-twins"]:
+        return model_twins_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -5195,6 +5509,10 @@ def main() -> int:
             line.replace("ptxas info    :", "").strip() for line in log.splitlines()
             if "Used" in line or "spill" in line))
 
+    # Phase 13's cpu twins start now, beside the card's runs of phases 2-13.
+    twins = ModelTwins(model_twin_jobs())
+    atexit.register(twins.close, False)
+
     phase("2 checksum kernel against its plain version")
     check_checksum_kernel(ts, tck, integrity)
     check_many_parts(ts, tck)
@@ -5227,6 +5545,10 @@ def main() -> int:
     print(f"box_game: {frames} frames, {logs['cuda']['saves']} saves, "
           f"{len(logs['cuda']['checksums'])} checksums bitwise equal to the cpu's, "
           f"launches {box_launches}, {box_checksums}")
+    box_world, _ = check_box_step(ts, box_game)
+    check_checksum_hook(ts, tck, integrity, [
+        ("box_game after 500 frames", box_world),
+        ("boids-1024", boids.make_world(1024, 2, device="cuda").commit())])
 
     phase("5 boids SyncTest on cuda (N=1024)")
     n, frames = 1024, 120
@@ -5544,7 +5866,7 @@ def main() -> int:
         - peer0["counts"]["restore_guards_total"]) / peer0["counts"]["spec_rollouts_total"]
 
     phase("13 projectiles and neural_bots on cuda")
-    models = models_phase(kernels, ts, tck, integrity)
+    models = models_phase(kernels, ts, tck, integrity, twins=twins)
     ck["launches"] += sum(v["launches"]["world_checksum"] for v in models["sync"].values())
     for key in ("projectiles_p2p", "neural_bots_p2p"):
         ck["launches"] += sum(l.get("world_checksum", 0) for run in ("on", "off")
@@ -5587,6 +5909,8 @@ def main() -> int:
     cell["launches"] += shard["launches"]["cell_slot_forces"]
     print("branch grid " + json.dumps(shard_branch_grid(tpw, tcg)), flush=True)
     phase(None)
+    walls = _PHASE["walls"]
+    print(f"phase walls (s) {json.dumps(walls)}, sum {sum(walls.values()):.1f}; {smi()}")
     print(json.dumps({"kernels": [ck, forces[1024], mxu2, tri, cell]}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -98,3 +98,28 @@ def test_two_speculating_port_peers_equal_speculation_off():
     assert on["attestation"]["ok"] and on["attestation"]["real_checked"] == 16
     assert all(p["spec_hits"] + p["spec_partial_hits"] > 0 for p in on["peers"])
     assert on["confirmed_checksums"] >= 10
+
+
+def test_chip_smoke_phase_13_twins_in_a_child_process():
+    """Phase 13's cpu twins as the card's run plays them, small: the
+    SyncTests' and a neural_bots P2P run's in the child process
+    (``ModelTwins``), each SyncTest stream the one the same job gives in
+    this process."""
+    jobs = [j for j in chip_smoke.model_twin_jobs(sync_frames=10, wide_frames=4, bots=16,
+                                                  branches=(4, 4), p2p_frames=(24, 24))
+            if j["label"] != "spec projectiles"]
+    twins = chip_smoke.ModelTwins(jobs, threads=1)
+    try:
+        got = {j["label"]: twins.result(j["label"]) for j in jobs}
+    except BaseException:
+        twins.close(ok=False)
+        raise
+    twins.close()
+    assert list(got) == ["projectiles_dense", "neural_bots_H32", "neural_bots_H256",
+                         "neural_bots_H512", "spec neural_bots"]
+    for job in jobs[:2]:
+        here = chip_smoke.model_twin((tck.world_checksum,), ts, tck, job)
+        assert here["stream"] == got[job["label"]]["stream"] and len(here["stream"]) >= 10
+    bots = twins.p2p("spec neural_bots")
+    assert bots["frames"] == 24 and len(bots["streams"]) == 2
+    assert all(st and all(isinstance(f, int) for f in st) for st in bots["streams"])

@@ -54,10 +54,10 @@ def worker(rank: int, rdv: str, out_dir: str) -> None:
             out["odd_slice"] = "no error"
         except ValueError as exc:
             out["odd_slice"] = str(exc)
-        out["again"] = list(multihost.initialize(f"file://{rdv}", 2, rank))
+        out["again"] = list(multihost.initialize(f"file://{rdv}", 2, rank, device="cpu"))
         # Phase 1: every process builds the same branch tensor and rolls
         # out its block; the commit of branch 5 crosses processes.
-        mesh = multihost.global_branch_mesh()
+        mesh = multihost.global_branch_mesh(device_type="cpu")
         out["mesh"] = [list(mesh.mesh_dim_names), [mesh.size(0), mesh.size(1)]]
         state = box_game.make_world(P, device="cpu").commit()
         ex = SpeculativeExecutor(box_game.make_schedule(), B, F, mesh=mesh)
@@ -67,7 +67,7 @@ def worker(rank: int, rdv: str, out_dir: str) -> None:
         out["rollout_checksum"] = combine64(checksum(final))
         out["ring_lanes"] = ring.checksums.tolist()
         # Phase 2: a live SyncTest, the world sharded over both processes.
-        mesh2 = multihost.global_branch_mesh(entity_shards=2)
+        mesh2 = multihost.global_branch_mesh(entity_shards=2, device_type="cpu")
         session = SyncTestSession(P, box_game.INPUT_SPEC, check_distance=2, max_prediction=4)
         runner = RollbackRunner(box_game.make_schedule(),
                                 box_game.make_world(P, device="cpu").commit(),
@@ -157,11 +157,11 @@ def test_single_process_calls_are_no_ops(monkeypatch):
 
 def test_a_mesh_without_a_group_makes_a_one_process_group():
     """A mesh asked for without an initialized group gets a world-size-1
-    group (gloo on the CPU); the global mesh then spans that one rank."""
-    mesh = multihost.global_branch_mesh()
+    group (gloo on the CPU, named); the global mesh then spans that one rank."""
+    mesh = multihost.global_branch_mesh(device_type="cpu")
     assert dist.is_initialized() and dist.get_world_size() == 1
     assert tuple(mesh.mesh_dim_names) == ("branch", "entity")
     assert (mesh.size(0), mesh.size(1)) == (1, 1)
     assert multihost.local_branch_slice(6) == (0, 6)
     with pytest.raises(ValueError, match="not divisible by entity_shards=3"):
-        multihost.global_branch_mesh(entity_shards=3)
+        multihost.global_branch_mesh(entity_shards=3, device_type="cpu")

@@ -178,7 +178,7 @@ def test_layouts_and_mesh_errors():
     mesh = world_mesh()
     assert tuple(mesh.mesh_dim_names) == ("branch", "entity")
     with pytest.raises(ValueError, match="not divisible by entity_shards=2"):
-        sharding.branch_mesh(entity_shards=2)
+        sharding.branch_mesh(entity_shards=2, device_type="cpu")
     state = tboids.make_world(8, 2, device="cpu").commit()
     specs = sharding.world_pspecs(state, "entity")
     assert specs.alive == sharding.P("entity") and specs.components["position"] == ("entity",)
