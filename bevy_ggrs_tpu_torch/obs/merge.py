@@ -17,6 +17,12 @@ single Chrome trace:
   are the same file shape and merge through the same path: pass them as
   additional trace files and the counter track lands on its process row,
   wall-aligned with the span timeline via the shared ``wall_t0`` anchor;
+- a ``torch.profiler`` Chrome trace (``prof.export_chrome_trace``) is one
+  more trace file: its events carry microseconds since the trace's own
+  ``baseTimeNanoseconds`` on the wall clock, which is its ``wall_t0``, so
+  with ``align="wall"`` the device's kernels and copies land on the
+  tracer's timeline (whose default clock is the same wall clock), and an
+  idle gap between kernels sits under the span the host was in;
 - every provenance record becomes a thin ``X`` slice on a dedicated
   "wire" track of its component's process;
 - records sharing a flow key are chained with Chrome flow events
@@ -72,7 +78,12 @@ def _causal_order(items, owner_of, rec_of, ts_of):
 def _load_trace(path: str) -> Tuple[List[dict], dict]:
     with open(path) as f:
         trace = json.load(f)
-    return list(trace.get("traceEvents", ())), dict(trace.get("otherData", {}))
+    other = dict(trace.get("otherData", {}))
+    base_ns = trace.get("baseTimeNanoseconds")
+    if base_ns is not None and "wall_t0" not in other:
+        # A torch.profiler Chrome trace: its ts count from its base time.
+        other["wall_t0"] = int(base_ns) / 1e9
+    return list(trace.get("traceEvents", ())), other
 
 
 def _load_provenance(path: str) -> Tuple[dict, List[dict]]:
@@ -159,13 +170,19 @@ def merge_traces(
         fpid, fname = other.get("pid"), other.get("process_name")
         for ev in tevents:
             ev = dict(ev)
-            opid = int(ev.get("pid", 0))
-            if opid not in file_pids:
-                name = fname if fname is not None and opid == fpid else None
-                file_pids[opid] = claim_pid(opid, name)
-            ev["pid"] = file_pids[opid]
+            opid = ev.get("pid", 0)
+            # A profiler trace also has rows named by a string ("Spans"):
+            # they cannot collide with a number and keep their names.
+            if not isinstance(opid, str) or opid.isdigit():
+                opid = int(opid)
+                if opid not in file_pids:
+                    name = fname if fname is not None and opid == fpid else None
+                    file_pids[opid] = claim_pid(opid, name)
+                ev["pid"] = file_pids[opid]
             if "ts" in ev:
-                ev["ts"] = int(ev["ts"]) + dt
+                # A profiler's fractional microseconds stay fractional.
+                ts = ev["ts"]
+                ev["ts"] = (ts if isinstance(ts, float) else int(ts)) + dt
             events.append(ev)
 
     # 2. Provenance records -> wire-track slices, collecting flow groups.
@@ -291,7 +308,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         description="Merge per-process trace + provenance exports into "
         "one Perfetto-loadable Chrome trace."
     )
-    ap.add_argument("traces", nargs="*", help="per-process trace.json files")
+    ap.add_argument("traces", nargs="*",
+                    help="per-process trace.json files (SpanTracer or HostProfiler "
+                    "exports, torch.profiler Chrome traces)")
     ap.add_argument(
         "--provenance", nargs="*", default=[],
         help="per-process provenance.jsonl files",

@@ -3,8 +3,8 @@
 Counterpart of ``bevy_ggrs_tpu/obs/trace.py``, a copy whose exports have
 the same structure. ``utils.metrics`` keeps counters and flat phase timers;
 this tracer adds the *timeline*: ``with trace.span("net_poll")``
-style nesting recorded as begin/end events on a monotonic microsecond
-clock, exported as
+style nesting recorded as begin/end events on a microsecond clock,
+exported as
 
 - Chrome-trace / Perfetto JSON (:meth:`SpanTracer.export_perfetto` — load
   the file in https://ui.perfetto.dev or ``chrome://tracing``),
@@ -25,6 +25,14 @@ Design notes:
 - Host-side only. For kernel-level profiles wrap the run in
   ``torch.profiler.profile``; both timelines compose (the profiler's trace
   carries the device's kernels, this one the session phases).
+- One clock with the profiler. By default the tracer stamps events on
+  the wall clock ``torch.profiler``'s events carry (``time.time_ns``), in
+  whole microseconds from an origin that is also ``wall_t0``: a stamp
+  plus ``wall_t0`` is the profiler's clock to the microsecond, so an idle
+  gap in a device trace can be put down to the span open at its time
+  (``obs/merge.py --align wall`` lays both on one timeline). A
+  caller-supplied ``clock`` (a virtual network clock, a stepped test
+  clock) keeps its own seconds and a ``wall_t0`` read apart.
 """
 
 from __future__ import annotations
@@ -168,21 +176,25 @@ def _component_track(name: str):
 
 class SpanTracer:
     """Enabled tracer. ``pid`` distinguishes peers when several tracers'
-    exports are merged into one trace (each peer is a Perfetto process)."""
+    exports are merged into one trace (each peer is a Perfetto process).
+    With no ``clock`` the stamps are wall-clock microseconds (the
+    profiler's clock) since the tracer was made, and ``wall_t0``, unless
+    given, is that instant; ``clock`` (seconds) replaces the wall clock."""
 
     enabled = True
 
     def __init__(
         self,
         capacity: int = 200_000,
-        clock=time.perf_counter,
+        clock=None,
         pid: int = 0,
         tid: int = 0,
         process_name: Optional[str] = None,
         wall_t0: Optional[float] = None,
     ):
         self._clock = clock
-        self._origin = clock()
+        # Wall microseconds (no clock given) or the clock's seconds at ts=0.
+        self._origin = time.time_ns() // 1000 if clock is None else clock()
         self._events = collections.deque(maxlen=int(capacity))
         self._agg: Dict[str, List[float]] = {}  # name -> [count, total, max]
         self._depth = 0
@@ -191,10 +203,15 @@ class SpanTracer:
         self.process_name = process_name
         # Wall-clock instant of ts=0, so the merge tool can align traces
         # captured by different processes (virtual-clock tracers share a
-        # timeline already; real-clock ones need this anchor).
-        self.wall_t0 = time.time() if wall_t0 is None else float(wall_t0)
+        # timeline already; real-clock ones need this anchor). On the
+        # default clock it is the origin itself.
+        if wall_t0 is None:
+            wall_t0 = self._origin / 1e6 if clock is None else time.time()
+        self.wall_t0 = float(wall_t0)
 
     def _now_us(self) -> int:
+        if self._clock is None:
+            return time.time_ns() // 1000 - self._origin
         return int((self._clock() - self._origin) * 1e6)
 
     # -- instruments ----------------------------------------------------
@@ -225,7 +242,7 @@ class SpanTracer:
         the reconstructed stack (an end whose begin was evicted from the
         ring is dropped); spans still open at export time are closed at
         the final timestamp, innermost first. Timestamps are monotonized
-        (the clock already is; this guards a caller-supplied clock)."""
+        (this guards a wall clock set back and a caller-supplied clock)."""
         out = []
         stack: List[str] = []
         last_ts = 0

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from bevy_ggrs_tpu_torch.native import spec as native_spec
+from bevy_ggrs_tpu_torch.obs.trace import null_tracer
 from bevy_ggrs_tpu_torch.rollout import rollout_burst
 from bevy_ggrs_tpu_torch.schedule import PREDICTED, Schedule
 from bevy_ggrs_tpu_torch.state import (
@@ -159,20 +160,26 @@ class SpecResult:
 
 
 def rollout_branches(schedule: Schedule, state: WorldState, start_frame: int,
-                     branch_bits: torch.Tensor, status: torch.Tensor,
-                     depth: int, shard=None) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+                     branch_bits, status, depth: int, shard=None,
+                     tracer=null_tracer) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Every branch of ``branch_bits[B, F, ...]`` from the single world
     ``state``: fresh ``[B, depth]`` rings, then (save, advance) × F, the
     semantics of F serial SaveGameState/AdvanceFrame pairs per branch.
-    Returns ``(rings, states[B], checksums[B, F, 2])``. ``shard`` (an
-    ``EntityShard``): ``state`` is its row block, and the saved lanes are
-    the whole world's."""
+    Returns ``(rings, states[B], checksums[B, F, 2])``. ``branch_bits``
+    and ``status`` are tensors on ``state``'s device or host arrays,
+    uploaded here. ``shard`` (an ``EntityShard``): ``state`` is its row
+    block, and the saved lanes are the whole world's. ``tracer`` gets a
+    ``burst_setup`` span (the uploads, the rings and the broadcast) and
+    the burst's."""
     B, F = int(branch_bits.shape[0]), int(branch_bits.shape[1])
-    rings = branch_rings(state, B, depth)
-    states = broadcast_branches(state, B)
+    with tracer.span("burst_setup"):
+        branch_bits = torch.as_tensor(branch_bits, device=state.device)
+        status = torch.as_tensor(status, device=state.device)
+        rings = branch_rings(state, B, depth)
+        states = broadcast_branches(state, B)
     mask = np.ones(F, dtype=bool)
     return rollout_burst(schedule, rings, states, start_frame, branch_bits, status,
-                         mask, mask, shard)
+                         mask, mask, shard, tracer)
 
 
 class SpeculativeExecutor:
@@ -184,12 +191,13 @@ class SpeculativeExecutor:
     :class:`~bevy_ggrs_tpu_torch.parallel.sharding.MeshLayout` instead.
     Every rank runs :meth:`run` with the same full branch tensor and the
     same start state (whole, or its rows), and :meth:`commit` on every
-    rank gives the same committed branch."""
+    rank gives the same committed branch. ``tracer`` gets a
+    ``spec_branch_dispatch`` span a :meth:`run`, holding the burst's
+    ``burst_setup``, ``burst_save`` and ``burst_step`` spans."""
 
     def __init__(self, schedule: Schedule, num_branches: int, max_frames: int,
                  mesh=None, branch_axis: str = "branch", entity_axis: Optional[str] = None,
                  state_template: Optional[WorldState] = None, tracer=None, layout=None):
-        from bevy_ggrs_tpu_torch.obs.trace import null_tracer
         from bevy_ggrs_tpu_torch.parallel.sharding import MeshLayout
 
         if layout is None:
@@ -214,15 +222,13 @@ class SpeculativeExecutor:
             raise ValueError(f"branch_bits [{b}, {f}, ...] != configured "
                              f"[{self.num_branches}, {self.max_frames}, ...]")
         state = self.layout.local_world(state)
-        device = state.device
         if status is None:
             status = np.full((f, host_bits.shape[2]), PREDICTED, dtype=np.int32)
         with self.tracer.span("spec_branch_dispatch", branches=b, frames=f):
             rings, states, checksums = rollout_branches(
-                self.schedule, state, int(start_frame),
-                torch.as_tensor(np.ascontiguousarray(local), device=device),
-                torch.as_tensor(np.asarray(status, np.int32), device=device),
-                self.max_frames, self.layout.entity)
+                self.schedule, state, int(start_frame), np.ascontiguousarray(local),
+                np.asarray(status, np.int32), self.max_frames, self.layout.entity,
+                self.tracer)
         return SpecResult(rings=rings, states=states, checksums=checksums,
                           branch_bits=host_bits, start_frame=int(start_frame),
                           num_frames=f, first_branch=self.layout.first_branch)

@@ -27,6 +27,12 @@ with a frame and a keep flag a slot, and each step advances the ``[S]``
 world once, a slot whose advance is off keeping its state (JAX's
 ``jnp.where``). :func:`ring_load_slots` loads each slot's own row of a
 ``[S, depth]`` stack of rings.
+
+A tracer (``obs/trace.py``; default the shared no-op one) passed to
+:meth:`RolloutExecutor.run` or :func:`rollout_burst` records where the
+burst's host time goes: ``burst_setup`` (the load and the uploads of the
+inputs), one ``burst_save`` a save and one ``burst_step`` a step of the
+schedule.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from bevy_ggrs_tpu_torch.obs.trace import null_tracer
 from bevy_ggrs_tpu_torch.schedule import PlayerInputs, Schedule
 from bevy_ggrs_tpu_torch.state import (
     SnapshotRing,
@@ -80,6 +87,7 @@ def rollout_burst(
     save_mask: np.ndarray,  # bool[T], host
     adv_mask: np.ndarray,  # bool[T], host
     shard=None,  # an EntityShard: ring and state are its row blocks
+    tracer=null_tracer,
 ) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Run the ``T`` steps; returns ``(ring, state, checksums[T, 2])`` with
     ``checksums[t]`` the checksum saved at step ``t`` (0 where
@@ -87,7 +95,8 @@ def rollout_burst(
     world runs every branch at once on its own ``bits[b]``, into a ``[B,
     depth]`` stack of rings, with ``checksums[B, T, 2]``. With ``shard``
     the saves store the whole world's lanes (:meth:`~bevy_ggrs_tpu_torch.
-    parallel.sharding.EntityShard.save`)."""
+    parallel.sharding.EntityShard.save`). ``tracer`` gets a ``burst_save``
+    span a save and a ``burst_step`` span a step."""
     lead = tuple(state.alive.shape[:-1])
     at = (slice(None),) * len(lead)  # the branch axes come before the time axis
     checksums = torch.zeros(lead + (len(save_mask), 2), dtype=torch.int64,
@@ -95,13 +104,15 @@ def rollout_burst(
     frame = int(start_frame)
     for t, (save, adv) in enumerate(zip(save_mask, adv_mask)):
         if save:
-            if shard is None:
-                ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
-            else:
-                shard.save(ring, state, frame, out=checksums[at + (t,)])
+            with tracer.span("burst_save"):
+                if shard is None:
+                    ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
+                else:
+                    shard.save(ring, state, frame, out=checksums[at + (t,)])
         if adv:
-            st = status[t].expand(lead + tuple(status.shape[1:]))
-            state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
+            with tracer.span("burst_step"):
+                st = status[t].expand(lead + tuple(status.shape[1:]))
+                state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
             frame += 1
     return ring, state, checksums
 
@@ -197,6 +208,7 @@ class RolloutExecutor:
         load_frame: Optional[int] = None,
         save_mask=None,
         adv_mask=None,
+        tracer=null_tracer,
     ) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
         """Run a host-assembled burst of ``n_frames`` steps.
 
@@ -204,7 +216,8 @@ class RolloutExecutor:
         ...]``; ``load_frame=None`` means no rollback (steps start at
         ``start_frame``), else the burst starts from the state saved for
         ``load_frame``. ``save_mask``/``adv_mask`` default to all True (the
-        standard (save, advance) pairing)."""
+        standard (save, advance) pairing). ``tracer`` gets a ``burst_setup``
+        span (the load and the two uploads) and :func:`rollout_burst`'s."""
         if n_frames > self.max_frames:
             raise ValueError(
                 f"burst of {n_frames} frames exceeds max_frames={self.max_frames}"
@@ -219,13 +232,14 @@ class RolloutExecutor:
             return out
 
         device = state.device
-        if load_frame is not None:
-            state = ring_load(ring, load_frame)
-            start_frame = load_frame
-        bits = torch.tensor(np.asarray(bits), device=device)
-        status = torch.tensor(np.asarray(status, np.int32), device=device)
+        with tracer.span("burst_setup"):
+            if load_frame is not None:
+                state = ring_load(ring, load_frame)
+                start_frame = load_frame
+            bits = torch.tensor(np.asarray(bits), device=device)
+            status = torch.tensor(np.asarray(status, np.int32), device=device)
         return rollout_burst(self.schedule, ring, state, start_frame, bits, status,
-                             mask(save_mask), mask(adv_mask), self.shard)
+                             mask(save_mask), mask(adv_mask), self.shard, tracer)
 
 
 def advance_n(

@@ -24,6 +24,13 @@ Checksums of saved frames go back to the session through
 sync per request list, and so is the restore guard's digest read at every
 rollback: both are part of the semantics (SyncTest compares every frame,
 and a corrupt row must never seed a resimulation).
+
+The runner's ``tracer`` (read at every call, so it may be set after
+construction) holds a tick's spans: ``handle_requests`` (with the
+runner's ``frame``) around ``restore_guard`` (the guard's launch and its
+read), ``dispatch`` (the executor's ``burst_setup``, ``burst_save`` and
+``burst_step`` spans, ``rollout.py``) and ``checksum_sync`` (the
+read-back). A repair runs under its own ``sdc_repair`` span.
 """
 
 from __future__ import annotations
@@ -182,7 +189,7 @@ class RollbackRunner:
         """Execute a request list in order, one burst per Load-delimited
         segment. ``RestoreGameState`` splits the list: everything before
         it runs first, then the restore replaces state, ring and frame."""
-        with self.tracer.span("handle_requests"):
+        with self.tracer.span("handle_requests", frame=self.frame):
             self._handle_requests(requests, session)
 
     def _handle_requests(self, requests: Sequence[object], session=None) -> None:
@@ -247,7 +254,9 @@ class RollbackRunner:
         n = len(steps)
         if load_frame is not None and self.verify_restores:
             self.restore_guards_total += 1
-            if not integrity.verify_row(self.ring, load_frame, self._shard):
+            with self.tracer.span("restore_guard"):
+                clean = integrity.verify_row(self.ring, load_frame, self._shard)
+            if not clean:
                 # The rollback's target row no longer hashes to its
                 # save-time digest: repair the ring first (raises
                 # StateFault when it cannot), then resimulate from the
@@ -287,6 +296,7 @@ class RollbackRunner:
                     load_frame=load_frame,
                     save_mask=save_mask,
                     adv_mask=adv_mask,
+                    tracer=self.tracer,
                 )
             if session is not None and self.report_checksums and save_mask.any():
                 # Only frames the session wants force the device->host
