@@ -16,3 +16,12 @@ def launch_counts() -> dict:
     wrapper name. A wrapper counts where it launches its kernel, never when
     a CPU tensor takes its plain version."""
     return {fn.__name__: int(fn.launches) for fn in wrappers()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by wrapper name, as :func:`launch_counts` gives them)
+    to the wrappers' ``launches``: a CUDA graph's replay launches the kernels
+    it captured without calling their wrappers, and its capture launches
+    none though the wrappers ran."""
+    for fn in wrappers():
+        fn.launches += int(counts.get(fn.__name__, 0))

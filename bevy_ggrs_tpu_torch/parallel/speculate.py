@@ -28,25 +28,37 @@ over the mesh's branch axis: each rank rolls out its contiguous block (no
 collective), and a commit broadcasts the chosen branch from the rank that
 owns it over the branch group. With ``entity_axis`` too, each world's
 entity axis splits over that axis as in the serial executor.
+
+On a CUDA world with no mesh and no checksum function installed
+(:func:`graph_path`), :meth:`SpeculativeExecutor.run` captures its rollout
+once as a CUDA graph (:class:`RolloutGraph`) per :func:`rollout_key` and
+replays it on every later call with that key: the same kernels, launched
+by one ``cudaGraphLaunch`` instead of one Python dispatch each, with the
+inputs copied into static buffers without a synchronize. Every other
+rollout runs eagerly through :func:`rollout_branches`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from bevy_ggrs_tpu_torch import ops
 from bevy_ggrs_tpu_torch.native import spec as native_spec
 from bevy_ggrs_tpu_torch.obs.trace import null_tracer
+from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
 from bevy_ggrs_tpu_torch.rollout import rollout_burst
-from bevy_ggrs_tpu_torch.schedule import PREDICTED, Schedule
+from bevy_ggrs_tpu_torch.schedule import PREDICTED, PlayerInputs, Schedule
 from bevy_ggrs_tpu_torch.state import (
     SnapshotRing,
     WorldState,
     branch_rings,
     broadcast_branches,
+    checksum_impl,
+    clone_ring,
     select_branch,
     tree_map,
 )
@@ -182,6 +194,166 @@ def rollout_branches(schedule: Schedule, state: WorldState, start_frame: int,
                          mask, mask, shard, tracer)
 
 
+def graph_path(device: torch.device, layout) -> bool:
+    """Whether :meth:`SpeculativeExecutor.run` replays its rollout as a
+    CUDA graph: a world on a CUDA device, a layout with neither a branch
+    nor an entity mesh, and no checksum function installed
+    (``state.set_checksum_impl``). Read at every call."""
+    return (device.type == "cuda" and layout.branch is None and layout.entity is None
+            and checksum_impl() is None)
+
+
+def _structure(tree):
+    """A hashable description of a tree's containers and of each tensor's
+    dtype and shape."""
+    if isinstance(tree, WorldState):
+        return tuple((f.name, _structure(getattr(tree, f.name)))
+                     for f in dataclasses.fields(WorldState))
+    if isinstance(tree, dict):
+        return tuple((k, _structure(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_structure(t) for t in tree)
+    if tree is None:
+        return None
+    return (tree.dtype, tuple(tree.shape))
+
+
+def rollout_key(schedule: Schedule, state: WorldState, bits: np.ndarray,
+                status: np.ndarray, depth: int) -> tuple:
+    """What one captured rollout is fixed to: B and F, the ring depth, the
+    world's structure (component names, dtypes and shapes, resources), its
+    device, the schedule, and the inputs' dtype and shapes. The start
+    frame, the start world's values and the tree's values are inputs of
+    the graph, not part of its key."""
+    return (int(bits.shape[0]), int(bits.shape[1]), int(depth), _structure(state),
+            str(state.device), schedule, bits.dtype.str, tuple(bits.shape[2:]),
+            tuple(status.shape))
+
+
+def _capture(body: Callable[[], Any]):
+    """``body()`` captured as a CUDA graph: ``(graph, the outputs it
+    writes at every replay)``."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out
+
+
+STAGES = 4  # pinned staging buffers of a RolloutGraph, each reused after its copy ran
+
+
+class RolloutGraph:
+    """One rollout of a :func:`rollout_key` captured as a CUDA graph.
+
+    The graph reads static device buffers: the start world, and one byte
+    buffer holding the start frame, the status and the branch tree. It
+    holds :func:`~bevy_ggrs_tpu_torch.state.branch_rings`,
+    :func:`~bevy_ggrs_tpu_torch.state.broadcast_branches` of the start
+    world, then F × (one save of all B branches, one ``[B]`` schedule
+    step), the semantics of :func:`rollout_branches`. Each save takes its
+    frame from a device tensor (the checksum kernel's per-slot frames), so
+    one capture serves every start frame.
+
+    :meth:`capture` runs the rollout once eagerly from its inputs (which
+    loads every kernel and fills the step's caches before the capture,
+    where a host upload would fail), captures the graph, and returns the
+    eager run as the first result. :meth:`replay` copies
+    its inputs in with no synchronize: the tree, status and frame through
+    one of :data:`STAGES` pinned buffers, each reused only after the event
+    of its last copy, the start world device to device. It then replays
+    the graph and copies the outputs into tensors of their own, so every
+    result owns its memory. A replay adds to each kernel wrapper's
+    ``launches`` the launches the graph holds; the capture adds none."""
+
+    def __init__(self, schedule: Schedule, state: WorldState, bits: np.ndarray,
+                 status: np.ndarray, depth: int):
+        device = state.device
+        B, F = int(bits.shape[0]), int(bits.shape[1])
+        self.start = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device=device),
+                              state)
+        # One byte buffer: the start frame, the status, the tree; each part
+        # 8-byte aligned so that it views as its own dtype.
+        at, nbytes = [], 0
+        for a in (np.zeros(1, np.int32), status, bits):
+            at.append((nbytes, a))
+            nbytes += -(-a.nbytes // 8) * 8
+
+        def parts(buf, view):
+            return tuple(view(buf[o:o + a.nbytes], a) for o, a in at)
+
+        self._inputs = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.frame0, self.status, self.bits = parts(
+            self._inputs, lambda b, a: b.view(torch.from_numpy(a).dtype).view(a.shape))
+        pin = device.type == "cuda"
+        self._stages = []
+        for _ in range(STAGES):
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+            views = parts(host.numpy(), lambda b, a: b.view(a.dtype).reshape(a.shape))
+            self._stages.append((host, views, torch.cuda.Event() if pin else None))
+        self._turn = 0
+
+        def body():  # reads only the static buffers
+            rings = branch_rings(self.start, B, depth)
+            states = broadcast_branches(self.start, B)
+            frames = self.frame0 + torch.arange(F, dtype=torch.int32, device=device)
+            frames = frames[:, None].expand(F, B).contiguous()
+            checksums = torch.zeros((B, F, 2), dtype=torch.int64, device=device)
+            for t in range(F):
+                world_checksum(states, "save", ring=rings, frames=frames[t],
+                               out=checksums[:, t])
+                st = self.status[t].expand((B,) + tuple(self.status.shape[1:]))
+                states = schedule(states, PlayerInputs(bits=self.bits[:, t], status=st))
+            return rings, states, checksums
+
+        self._body = body
+        self.graph = self._out = None
+        self.launches: Dict[str, int] = {}
+
+    def capture(self, state: WorldState, start_frame: int, bits: np.ndarray,
+                status: np.ndarray) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+        """The rollout of ``bits`` from ``state`` at ``start_frame``, run
+        eagerly, in memory of its own; then the graph, captured from the
+        same buffers."""
+        self._load(state, start_frame, bits, status)
+        first = _owned(*self._body())
+        before = ops.launch_counts()
+        self.graph, self._out = _capture(self._body)
+        self.launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        ops.add_launches({k: -v for k, v in self.launches.items()})
+        return first
+
+    def _load(self, state: WorldState, start_frame: int, bits: np.ndarray,
+              status: np.ndarray) -> None:
+        if not -(1 << 31) <= start_frame <= (1 << 31) - bits.shape[1]:
+            raise ValueError(f"frames from {start_frame} do not fit the ring's int32 frames")
+        host, (frame0, st, tree), done = self._stages[self._turn]
+        self._turn = (self._turn + 1) % len(self._stages)
+        if done is not None:
+            done.synchronize()  # the copy that last read this buffer has run
+        frame0[0] = start_frame
+        np.copyto(st, status)
+        np.copyto(tree, bits)
+        self._inputs.copy_(host, non_blocking=True)
+        if done is not None:
+            done.record()
+        tree_map(lambda d, s: d.copy_(s), self.start, state)
+
+    def replay(self, state: WorldState, start_frame: int, bits: np.ndarray,
+               status: np.ndarray) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+        """The rollout of ``bits`` from ``state`` at ``start_frame``:
+        ``(rings, states, checksums)`` in memory of their own."""
+        self._load(state, start_frame, bits, status)
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        return _owned(*self._out)
+
+
+def _owned(rings: SnapshotRing, states: WorldState, checksums: torch.Tensor):
+    """Copies of a rollout's outputs: the graph's are rewritten at every
+    replay, and at B = 1 a leaf no step writes is the start buffer itself."""
+    return clone_ring(rings), tree_map(torch.clone, states), checksums.clone()
+
+
 class SpeculativeExecutor:
     """B-branch × F-frame rollout bound to one schedule and shape.
 
@@ -191,9 +363,16 @@ class SpeculativeExecutor:
     :class:`~bevy_ggrs_tpu_torch.parallel.sharding.MeshLayout` instead.
     Every rank runs :meth:`run` with the same full branch tensor and the
     same start state (whole, or its rows), and :meth:`commit` on every
-    rank gives the same committed branch. ``tracer`` gets a
-    ``spec_branch_dispatch`` span a :meth:`run`, holding the burst's
-    ``burst_setup``, ``burst_save`` and ``burst_step`` spans."""
+    rank gives the same committed branch.
+
+    Where :func:`graph_path` holds, :meth:`run` captures a
+    :class:`RolloutGraph` on its first call for a :func:`rollout_key`
+    (``graph_captures``, span ``spec_graph_capture``) and replays it on
+    every later call with that key (``graph_replays``, span
+    ``spec_graph_replay``). Elsewhere it runs :func:`rollout_branches`
+    (``eager_runs``), and ``tracer`` gets a ``spec_branch_dispatch`` span
+    a call, holding the burst's ``burst_setup``, ``burst_save`` and
+    ``burst_step`` spans."""
 
     def __init__(self, schedule: Schedule, num_branches: int, max_frames: int,
                  mesh=None, branch_axis: str = "branch", entity_axis: Optional[str] = None,
@@ -208,6 +387,10 @@ class SpeculativeExecutor:
         self.num_branches = int(num_branches)
         self.max_frames = int(max_frames)
         self.tracer = tracer if tracer is not None else null_tracer
+        self._graphs: Dict[tuple, RolloutGraph] = {}
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.eager_runs = 0
 
     def run(self, state: WorldState, start_frame: int, branch_bits,
             status=None) -> SpecResult:
@@ -224,13 +407,32 @@ class SpeculativeExecutor:
         state = self.layout.local_world(state)
         if status is None:
             status = np.full((f, host_bits.shape[2]), PREDICTED, dtype=np.int32)
-        with self.tracer.span("spec_branch_dispatch", branches=b, frames=f):
-            rings, states, checksums = rollout_branches(
-                self.schedule, state, int(start_frame), np.ascontiguousarray(local),
-                np.asarray(status, np.int32), self.max_frames, self.layout.entity,
-                self.tracer)
+        local = np.ascontiguousarray(local)
+        status = np.ascontiguousarray(np.asarray(status, np.int32))
+        start_frame = int(start_frame)
+        if graph_path(state.device, self.layout):
+            key = rollout_key(self.schedule, state, local, status, self.max_frames)
+            graph = self._graphs.get(key)
+            if graph is None:
+                with self.tracer.span("spec_graph_capture", branches=b, frames=f):
+                    graph = RolloutGraph(self.schedule, state, local, status, self.max_frames)
+                    rings, states, checksums = graph.capture(state, start_frame, local,
+                                                             status)
+                self._graphs[key] = graph
+                self.graph_captures += 1
+            else:
+                with self.tracer.span("spec_graph_replay", branches=b, frames=f):
+                    rings, states, checksums = graph.replay(state, start_frame, local,
+                                                            status)
+                self.graph_replays += 1
+        else:
+            with self.tracer.span("spec_branch_dispatch", branches=b, frames=f):
+                rings, states, checksums = rollout_branches(
+                    self.schedule, state, start_frame, local, status, self.max_frames,
+                    self.layout.entity, self.tracer)
+            self.eager_runs += 1
         return SpecResult(rings=rings, states=states, checksums=checksums,
-                          branch_bits=host_bits, start_frame=int(start_frame),
+                          branch_bits=host_bits, start_frame=start_frame,
                           num_frames=f, first_branch=self.layout.first_branch)
 
     def commit(self, result: SpecResult, branch: int):

@@ -115,7 +115,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    depth]`` stacks of rings (phase 2 checks under ``torch.profiler`` that
    one such save is one CUDA kernel and no host-to-device copy); its device
    time by graph replay
-   at B = 64 and 256 beside its bytes bound. The warmup attestation of a
+   at B = 64 and 256 beside its bytes bound. ``SpeculativeExecutor.run``'s
+   CUDA graph (boids-1,024 mxu at B = 128 and box_game at B = 64, F = 8):
+   the capturing call and replays at the captured start frame and at
+   another, from another world, each bitwise the eager
+   ``rollout_branches`` (rings' bytes, frames, lanes, final states,
+   stream); a result unchanged by two later calls; the wrappers'
+   launches over N replays equal to N eager rollouts'; under
+   ``torch.profiler`` a replay is one ``cudaGraphLaunch`` running F
+   launches of each of the eager rollout's hand-written kernels; and
+   each call's host ms, eager and replayed. The warmup attestation of a
    box_game runner at B = 64, F = 8 (``ok``, ``real_checked``,
    ``scanned_branches``), the live ring bitwise unchanged by it. Then
    box_game, 2 peers, both ``with_speculation(64)``, 600 frames over phase
@@ -1909,6 +1918,116 @@ def check_batched_save_case(ts, tck, label: str, B: int, worlds, depth: int,
           f"bitwise equal to the plain version over {len(frames)} saves"
           + (", lanes through a strided [:, t] view" if strided else "")
           + (" and to the single-world save" if B == 1 else ""))
+
+
+SPEC_GRAPH_REPLAYS = 8  # replays whose launches are held to as many eager rollouts'
+
+
+def check_spec_graph(ts, boids, box_game) -> dict:
+    """``SpeculativeExecutor.run`` through its CUDA graph against the eager
+    ``rollout_branches``, bitwise, on boids-1,024 (mxu) at B = 128 and
+    box_game at B = 64, F = 8: the capturing call at frame 60, a replay
+    at 60 and one at 61 from a world one step on; a result unchanged by
+    two later calls on other trees; the kernel wrappers' launches over
+    :data:`SPEC_GRAPH_REPLAYS` replays equal to as many eager rollouts';
+    one replay under ``torch.profiler``: one ``cudaGraphLaunch`` running F
+    launches of each hand-written kernel the eager rollout runs. Returns
+    per case the host ms of a call (after a synchronize), eager and
+    replayed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevy_ggrs_tpu_torch import ops
+    from bevy_ggrs_tpu_torch.parallel.speculate import SpeculativeExecutor, rollout_branches
+    from bevy_ggrs_tpu_torch.schedule import PREDICTED, make_inputs
+
+    F = P2P_MAX_PREDICTION
+    cases = [("boids-1024 mxu", boids.make_schedule(kernel="mxu", mode="dense"),
+              boids.make_world(BOIDS_SPEC_N, 2, device="cuda").commit(),
+              BOIDS_SPEC_BRANCHES, ("pairwise_force_rows_mxu_kernel", "world_checksum_kernel")),
+             ("box_game", box_game.make_schedule(), box_game.make_world(2, device="cuda").commit(),
+              SPEC_BRANCHES, ("world_checksum_kernel",))]
+    out = {}
+    for label, sched, world, B, kernels in cases:
+        rng = np.random.RandomState(B)
+        trees = [rng.randint(0, 16, (B, F, 2)).astype(np.uint8) for _ in range(5)]
+        status = np.full((F, 2), PREDICTED, np.int32)
+        later = sched(world, make_inputs(torch.tensor([1, 8], dtype=torch.uint8,
+                                                      device="cuda")))
+
+        def eager(w, start, tree):
+            return rollout_branches(sched, w, start, tree, status, F)
+
+        def same(res, want, what):
+            rings, states, lanes = want
+            check(torch.equal(res.rings.frames, rings.frames)
+                  and torch.equal(res.rings.checksums, rings.checksums)
+                  and torch.equal(res.checksums, lanes)
+                  and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, res.rings.states),
+                                                           world_leaves(ts, rings.states)))
+                  and all(same_bytes(a, b) for a, b in zip(world_leaves(ts, res.states),
+                                                           world_leaves(ts, states))),
+                  f"spec graph {label}: {what} differs from the eager rollout")
+
+        ex = SpeculativeExecutor(sched, B, F)
+        calls = [(world, 60, trees[0], "the capturing call"),
+                 (world, 60, trees[1], "a replay at the captured frame"),
+                 (later, 61, trees[2], "a replay at another frame and world")]
+        results = []
+        for w, start, tree, what in calls:
+            results.append(ex.run(w, start, tree))
+            same(results[-1], eager(w, start, tree), what)
+        kept = [t.clone() for t in world_leaves(ts, results[1].rings.states)
+                + world_leaves(ts, results[1].states)] + [results[1].checksums.clone()]
+        ex.run(world, 62, trees[3])
+        ex.run(later, 63, trees[4])
+        now = world_leaves(ts, results[1].rings.states) + world_leaves(ts, results[1].states)
+        check(all(same_bytes(a, b) for a, b in zip(now + [results[1].checksums], kept)),
+              f"spec graph {label}: a result changed after two later calls")
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        for i in range(SPEC_GRAPH_REPLAYS):
+            ex.run(world, 60 + i, trees[i % len(trees)])
+        torch.cuda.synchronize()
+        replayed = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        before = ops.launch_counts()
+        for i in range(SPEC_GRAPH_REPLAYS):
+            eager(world, 60 + i, trees[i % len(trees)])
+        torch.cuda.synchronize()
+        eagerly = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        check(replayed == eagerly, f"spec graph {label}: launches over "
+              f"{SPEC_GRAPH_REPLAYS} replays {replayed} != eager {eagerly}")
+        check((ex.graph_captures, ex.eager_runs) == (1, 0)
+              and ex.graph_replays == len(calls) + 1 + SPEC_GRAPH_REPLAYS,
+              f"spec graph {label}: counters {ex.graph_captures} / {ex.graph_replays} / "
+              f"{ex.eager_runs}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ex.run(world, 60, trees[0])
+            torch.cuda.synchronize()
+        names = [(e.device_type() == torch.autograd.DeviceType.CUDA, e.name())
+                 for e in prof.profiler.kineto_results.events()]
+        graph_launches = sum(not dev and n.startswith("cudaGraphLaunch") for dev, n in names)
+        per_kernel = {k: sum(dev and k in n for dev, n in names) for k in kernels}
+        check(graph_launches == 1 and all(c == F for c in per_kernel.values()),
+              f"spec graph {label}: {graph_launches} graph launches, kernels {per_kernel}")
+        host = {}
+        for name, fn in (("eager", lambda i: eager(world, 60, trees[i % 5])),
+                         ("replay", lambda i: ex.run(world, 60, trees[i % 5]))):
+            times = []
+            for i in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(i)
+                times.append((time.perf_counter() - t0) * 1e3)
+            host[f"{name}_host_ms"] = float(np.median(times))
+        torch.cuda.synchronize()
+        out[label] = dict(host, kernels_per_replay=per_kernel, launches_per_replay={
+            k: v / SPEC_GRAPH_REPLAYS for k, v in replayed.items() if v})
+        print(f"spec graph {label} B={B} F={F}: the capturing call and replays at frames "
+              f"60 and 61 bitwise the eager rollout; a result unchanged by two later "
+              f"calls; launches over {SPEC_GRAPH_REPLAYS} replays equal to as many eager "
+              f"rollouts' {replayed}; one cudaGraphLaunch a replay, kernels {per_kernel}; "
+              f"host ms eager {host['eager_host_ms']:.3f}, replay {host['replay_host_ms']:.3f}")
+    return out
 
 
 def batched_save_times(ts, tck) -> dict:
@@ -5817,6 +5936,7 @@ def main() -> int:
 
     phase("11 speculation on cuda")
     check_batched_save(ts, tck, boids)
+    spec_graph = check_spec_graph(ts, boids, box_game)
     ck["batched_save"] = batched_save_times(ts, tck)
     attestation = check_attestation(ts)
     spec = spec_phase(kernels, ts, tck)
@@ -5828,7 +5948,7 @@ def main() -> int:
         (l.get("world_checksum", 0) - c["saves_total"] - c["restore_guards_total"])
         / c["spec_rollouts_total"]
         for l, c in zip(spec["on"]["launches"], spec["on"]["counts"])]
-    print("spec " + json.dumps({"attestation": attestation,
+    print("spec " + json.dumps({"attestation": attestation, "graph": spec_graph,
                                 "counts": spec["on"]["counts"]}))
 
     phase("11b boids under speculation on cuda")
