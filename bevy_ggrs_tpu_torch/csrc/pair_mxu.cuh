@@ -1,8 +1,8 @@
-// Shared pieces of the two tensor-core boids force kernels
-// (pairwise_mxu.cu and pairwise_tri.cu): the pair-mask tile, the feature
-// tiles (built from the boids), and the combine. Counterparts of
-// _pair_masks, _lane_feats' tiles, _acc_sums and _combine_forces in
-// bevy_ggrs_tpu/ops/pairwise.py.
+// Pieces of the tensor-core boids force kernels: the triangle's
+// (pairwise_tri.cu) pair-mask tile and feature tiles (built from the
+// boids), and the constants and the combine that pairwise_mxu.cu uses too.
+// Counterparts of _pair_masks, _lane_feats' tiles, _acc_sums and
+// _combine_forces in bevy_ggrs_tpu/ops/pairwise.py.
 //
 // A tile pairs kTile row boids with kTile column boids. Its three pair
 // matrices (the 0/1 neighbour mask and the hi/lo halves of the separation
@@ -76,19 +76,6 @@ __device__ inline void build_feature_column(const float2* __restrict__ pos,
   for (int f = kFeat; f < 16; ++f) s_feat[f * kLd + c] = zero;
 #pragma unroll
   for (int f = kSep; f < 16; ++f) s_sep[f * kLd + c] = zero;
-}
-
-// Stage columns [base, base + kTile) of the boids with
-// build_feature_column, one column a thread.
-__device__ inline void build_features(const float2* __restrict__ pos,
-                                      const float2* __restrict__ vel,
-                                      const float* __restrict__ active, int N,
-                                      int base, float* s_cpx, float* s_cpy,
-                                      __nv_bfloat16* s_feat,
-                                      __nv_bfloat16* s_sep) {
-  for (int c = threadIdx.x; c < kTile; c += blockDim.x)
-    build_feature_column(pos, vel, active, N, base, c, s_cpx, s_cpy, s_feat,
-                         s_sep);
 }
 
 // One pair of the masks, as _pair_masks builds it: d2 in f32 without FMA

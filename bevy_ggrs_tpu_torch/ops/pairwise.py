@@ -27,11 +27,12 @@ operands:
 
 - a kernel takes the branch as ``blockIdx.y`` (folded into
   ``blockIdx.z`` past 65,535 branches, :func:`branch_grid`) and runs each
-  branch's blocks exactly as an unbatched launch runs them. Its launch shape comes
-  from the per-world ``R`` and ``N`` only (:func:`force_rows_launch_shape`,
-  :func:`mxu2_launch_shape`), never from B: mxu2's cluster size fixes the
-  order in which its stages add, so a size chosen from B would give other
-  bits, and attestation would switch speculation off;
+  branch's rows with the same arithmetic as an unbatched launch. What
+  orders a row's sums comes from the per-world ``R`` and ``N`` only
+  (:func:`force_rows_launch_shape`, :func:`mxu2_launch_shape`), never from
+  B: mxu2's column ranks fix the order in which their partial sums add, so
+  ranks chosen from B would give other bits, and attestation would switch
+  speculation off (B may only place the work, :func:`mxu2_geometry`);
 - a plain version loops over the branches, one unbatched call each: a
   batched product (``[B, 10, N] @ [B, N, N]``) can sum in another order
   than B single ones on the CPU, where the tests attest.
@@ -41,7 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -384,17 +385,15 @@ def pairwise_force_rows_mxu2_plain(
     **weights,
 ) -> torch.Tensor:
     """Plain PyTorch version of the tensor-core kernel: the bf16 pair
-    matrices in the kernel's blocks, 64 rows against each cluster rank's
-    column tiles (:func:`mxu2_tile_ranges` of the launch shape for
-    ``launch_rows``, default R), one f32 product each, the ranks' partial
-    sums added in rank order (a branch at a time over a leading ``[B]``).
-    Every product has the same shape for any R, so a row block of a
-    sharded world gets the bits of the same rows of the whole world's
-    call when ``launch_rows`` is the whole world's row count."""
+    matrices, 64 rows at a time against each column rank's columns
+    (:func:`mxu2_geometry` for ``launch_rows``, default R), one f32
+    product each, the ranks' partial sums added in rank order (a branch at
+    a time over a leading ``[B]``). Every product has the same shape for
+    any R, so a row block of a sharded world gets the bits of the same
+    rows of the whole world's call when ``launch_rows`` is the whole
+    world's row count."""
     n, r = all_pos.shape[0], row_pos.shape[0]
-    p, _ = mxu2_launch_shape(r if launch_rows is None else launch_rows, n)
-    cols = [(a * MXU_TILE, min(b * MXU_TILE, n)) for a, b in mxu2_tile_ranges(n, p)]
-    cols = [(a, b) for a, b in cols if b > a]
+    cols = mxu2_geometry(1, r, n, launch_rows).columns
     feat_t, sep_t = _feats_of(all_pos, all_vel, all_active)
     feat, sep = feat_t.to(torch.float32), sep_t.to(torch.float32)
     rp = _row_tiles(row_pos).reshape(-1, 2)
@@ -443,19 +442,24 @@ def _launch_params(neighbor_radius, separation_radius, w_separation,
 
 
 MXU_TILE = 64  # the tensor-core kernels' tile edge (csrc/pair_mxu.cuh kTile)
-_CLUSTER_SIZES = (1, 2, 4, 8)  # 8 is the portable thread-block cluster limit
+_RANK_COUNTS = (1, 2, 4, 8)  # column ranks P: a block's 8 warps are P ranks x 8 / P row groups
+MXU_WARP_ROWS = 16  # rows of one mma.sync tile (csrc/pairwise_mxu.cu kRows)
+_MXU_WARPS = 8  # warps of a block of csrc/pairwise_mxu.cu
+_MXU_FILL_BLOCKS = 4 * _SMS  # blocks that fill the SMs twice over at two an SM (kFillBlocks)
 
 
 def mxu2_launch_shape(r: int, n: int) -> Tuple[int, int]:
     """``(P, row_blocks)`` of the general tensor-core kernel for ``r`` rows
-    and ``n`` columns: each 64-row block's column tiles are split over a
-    cluster of ``P`` blocks, and the grid is ``row_blocks * P`` blocks.
-    ``P`` doubles from 1 while ``row_blocks * P`` is short of the SMs and
-    every block of the cluster still gets a column tile."""
+    and ``n`` columns: the columns are split into ``P`` ranks, whose
+    partial sums add in rank order, and ``row_blocks`` counts the 64-row
+    blocks the choice weighs. ``P`` doubles from 1 while ``row_blocks * P``
+    is short of the SMs and every rank still gets a column tile. ``P`` fixes
+    the order of every row's sums, so it comes from one world's shape
+    alone (:func:`mxu2_geometry`)."""
     row_blocks = -(-r // MXU_TILE)
     tiles = -(-n // MXU_TILE)
-    p = _CLUSTER_SIZES[0]
-    for bigger in _CLUSTER_SIZES[1:]:
+    p = _RANK_COUNTS[0]
+    for bigger in _RANK_COUNTS[1:]:
         if row_blocks * p >= _SMS or bigger > tiles:
             break
         p = bigger
@@ -463,10 +467,46 @@ def mxu2_launch_shape(r: int, n: int) -> Tuple[int, int]:
 
 
 def mxu2_tile_ranges(n: int, p: int) -> Tuple[Tuple[int, int], ...]:
-    """The column tiles ``[start, end)`` that each block rank of a cluster
-    of ``p`` walks, as ``csrc/pairwise_mxu.cu`` splits them."""
+    """The column tiles ``[start, end)`` that each of ``p`` column ranks
+    walks, as ``csrc/pairwise_mxu.cu`` splits them."""
     tiles = -(-n // MXU_TILE)
     return tuple((q * tiles // p, (q + 1) * tiles // p) for q in range(p))
+
+
+class Mxu2Geometry(NamedTuple):
+    """How ``csrc/pairwise_mxu.cu`` lays out one launch.
+
+    ``ranks`` (P) and ``columns`` (each rank's columns ``[start, end)``,
+    walked 16 at a time in ascending order) fix the order of every row's
+    f32 sums; ``warp_tiles`` (M, 16-row tiles a warp), ``block_rows`` (16
+    M 8 / P: a block's 8 warps are P rank warps for each of 8 / P row
+    groups) and ``blocks`` (a branch) only place the work."""
+
+    ranks: int
+    columns: Tuple[Tuple[int, int], ...]
+    warp_tiles: int
+    block_rows: int
+    blocks: int
+
+
+def mxu2_geometry(branches: int, r: int, n: int,
+                  launch_rows: Optional[int] = None) -> Mxu2Geometry:
+    """The launch of :func:`pairwise_force_rows_mxu2` over ``branches``
+    worlds of ``r`` rows against ``n`` columns. The ranks and their columns
+    come from ``(launch_rows or r, n)`` alone (:func:`mxu2_launch_shape`,
+    :func:`mxu2_tile_ranges`), so every branch gets its unbatched launch's
+    bits. M is the largest of 4, 2, 1 that still gives the launch
+    ``_MXU_FILL_BLOCKS`` blocks: a wide batch builds each column's features
+    once for 64 rows, a single world still spreads over the SMs. The C
+    entry picks M the same way (``warp_tiles``)."""
+    p, _ = mxu2_launch_shape(r if launch_rows is None else int(launch_rows), n)
+    columns = tuple((a * MXU_TILE, min(b * MXU_TILE, n)) for a, b in mxu2_tile_ranges(n, p))
+    for m in (4, 2, 1):
+        block_rows = MXU_WARP_ROWS * m * (_MXU_WARPS // p)
+        blocks = -(-r // block_rows)
+        if branches * blocks >= _MXU_FILL_BLOCKS:
+            break
+    return Mxu2Geometry(p, columns, m, block_rows, blocks)
 
 
 def pairwise_force_rows_mxu2(
@@ -486,22 +526,22 @@ def pairwise_force_rows_mxu2(
 
     ``launch_rows`` (default R) is the row count the launch shape is
     chosen for. A sharded caller computing its row block of an N-row world
-    passes N: the cluster size, and so the column split and the order in
-    which the ranks' sums add, is then the whole world's, and each row
+    passes N: the column ranks, and so the column split and the order in
+    which the ranks' sums add, are then the whole world's, and each row
     gets the bits of the unsharded call (:func:`mxu2_launch_shape` would
-    give 2,048 rows of 4,096 columns a larger cluster than 4,096 rows).
+    give 2,048 rows of 4,096 columns more ranks than 4,096 rows).
 
     A CPU tensor takes :func:`pairwise_force_rows_mxu2_plain`; a CUDA
     tensor launches ``csrc/pairwise_mxu.cu`` once on the current stream, as
-    clusters of :func:`mxu2_launch_shape` for every branch, and the kernel
+    :func:`mxu2_geometry` lays it out for every branch, and the kernel
     builds the feature stacks itself. Anything it cannot take, and a
-    cluster launch the card refuses, raises."""
+    launch the card refuses, raises."""
     args = (row_pos, row_vel, all_pos, all_vel, row_active, all_active)
     device, B, R, N = _rows_operands(*args)
     if device.type == "cpu":
         return pairwise_force_rows_mxu2_plain(*args, launch_rows=launch_rows, **params)
     check_branch_cap(B, "pairwise_force_rows_mxu2")
-    p, _ = mxu2_launch_shape(R if launch_rows is None else int(launch_rows), N)
+    p = mxu2_geometry(B, R, N, launch_rows).ranks
     out = torch.empty(row_pos.shape, dtype=torch.float32, device=device)
     fn = _build.function("pairwise_mxu", "ggrs_pairwise_force_rows_mxu",
                          _ARGTYPES)

@@ -947,9 +947,10 @@ def check_mxu_kernels(tpw, boids, params) -> dict:
             args = (pos[rows].contiguous(), vel[rows].contiguous(),
                     pos[:n_cols].contiguous(), vel[:n_cols].contiguous(),
                     act[rows].contiguous(), act[:n_cols].contiguous())
-            p, row_blocks = tpw.mxu2_launch_shape(args[0].shape[0], n_cols)
+            geo = tpw.mxu2_geometry(1, args[0].shape[0], n_cols)
             err = held(f"mxu2 {data} R={args[0].shape[0]} (rows {rows.start}:{rows.stop}) "
-                       f"N={n_cols} cluster {p} x {row_blocks} row blocks",
+                       f"N={n_cols} {geo.ranks} ranks, {geo.warp_tiles} row tiles a warp, "
+                       f"{geo.blocks} blocks",
                        tpw.pairwise_force_rows_mxu2(*args, **params),
                        tpw.pairwise_force_rows_mxu2_plain(*args, **params),
                        tpw.pairwise_force_rows_mxu2(*args, **params), rtol)
@@ -2337,7 +2338,7 @@ def check_batched_forces(tpw, tcg, tnb, boids, params) -> dict:
     Returns, per kernel, its worst error and the case at the phase-11
     shape (timed later)."""
     spiral = {n: boids.make_world(n, 2, device="cuda").commit().components["position"]
-              for n in (1000, 1024, 4096, 4100)}
+              for n in (300, 1000, 1024, 4096, 4100)}
     out = {"pairwise_force_rows": {"err": 0.0}, "pairwise_force_rows_mxu2": {"err": 0.0},
            "pairwise_force_square_mxu_tri": {"err": 0.0}, "cell_slot_forces": {"err": 0.0}}
 
@@ -2363,16 +2364,21 @@ def check_batched_forces(tpw, tcg, tnb, boids, params) -> dict:
             lambda scale: FORCE_ATOL,
             {"nbytes": B * (r * 5 + n * 5 + r * 2) * 4, "ops": B * r * n * FORCE_OPS_PER_PAIR}),
              timed)
+    # mxu2: phase 11's batch, the spec cell's (512), a row subset, one
+    # world, and N = 300: 4 ranks, two row groups a block, a ragged last rank.
     for B, n, rows, timed in ((BOIDS_SPEC_BRANCHES, 1024, slice(0, 1024), True),
-                              (3, 1000, slice(0, 65), False), (1, 1024, slice(0, 1024), False)):
+                              (512, 1024, slice(0, 1024), False),
+                              (3, 1000, slice(0, 65), False), (1, 1024, slice(0, 1024), False),
+                              (4, 300, slice(0, 300), False)):
         args, batched, singles, plain = rows_case(
             tpw.pairwise_force_rows_mxu2, tpw.pairwise_force_rows_mxu2_plain, B, n, rows,
             seed=100 + B)
         r = args[0].shape[1]
-        p, row_blocks = tpw.mxu2_launch_shape(r, n)
+        geo = tpw.mxu2_geometry(B, r, n)
         keep("pairwise_force_rows_mxu2", branch_case(
-            f"mxu2 over branches B={B} R={r} N={n} (cluster {p} x {row_blocks} row blocks "
-            f"x {B} branches)", batched, singles, plain, lambda scale: MXU_RTOL * scale,
+            f"mxu2 over branches B={B} R={r} N={n} ({geo.ranks} ranks, {geo.warp_tiles} row "
+            f"tiles a warp, {geo.blocks} blocks x {B} branches)", batched, singles, plain,
+            lambda scale: MXU_RTOL * scale,
             {"nbytes": B * (r * 5 + n * 5 + r * 2) * 4, "ops": B * r * n * MXU_MASK_OPS_PER_PAIR,
              "tc_flops": B * r * n * MXU_TC_FLOPS_PER_PAIR}), timed)
     def tri_case(B, n, seed):

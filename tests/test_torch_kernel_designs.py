@@ -241,7 +241,7 @@ def test_mxu2_launch_shape_covers_every_column_tile_once(r, n):
     p, row_blocks = tpw.mxu2_launch_shape(r, n)
     tiles = -(-n // tpw.MXU_TILE)
     assert p in (1, 2, 4, 8) and p <= tiles
-    assert row_blocks == -(-r // tpw.MXU_TILE)  # the grid is row_blocks * p
+    assert row_blocks == -(-r // tpw.MXU_TILE)  # the 64-row blocks P is weighed for
     ranges = tpw.mxu2_tile_ranges(n, p)
     assert len(ranges) == p
     walked = [t for start, end in ranges for t in range(start, end)]
@@ -252,5 +252,5 @@ def test_mxu2_launch_shape_covers_every_column_tile_once(r, n):
 
 
 def test_mxu2_launch_shape_at_the_main_path():
-    assert tpw.mxu2_launch_shape(1024, 1024) == (8, 16)  # 128 blocks, 2 tiles each
+    assert tpw.mxu2_launch_shape(1024, 1024) == (8, 16)  # 8 ranks of 2 tiles each
     assert tpw.mxu2_tile_ranges(1024, 8)[0] == (0, 2)

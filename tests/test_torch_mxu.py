@@ -224,3 +224,48 @@ def test_tri_scratch_holds_one_block_per_upper_tile():
     assert tpw.tri_scratch_shape(4096) == (2, 64 * 65 // 2, 16, 64)
     assert tpw.tri_scratch_shape(4100) == (2, 65 * 66 // 2, 16, 64)
     assert tpw.tri_scratch_shape(1) == (2, 1, 16, 64)
+
+
+# --- the general kernel's launch geometry (csrc/pairwise_mxu.cu)
+
+# (R, N, launch_rows): P = 2, 4, 8, 8, 4, 1, 8, 2; ragged N; launch_rows
+# other than R, as a sharded row block passes it.
+GEOMETRY_CASES = [(65, 100, None), (1024, 300, None), (1024, 1000, None),
+                  (1024, 1024, None), (2048, 4096, 4096), (1024, 4100, 9000),
+                  (65, 1000, 1000), (300, 65, None)]
+GEOMETRY_BRANCHES = (1, 2, 3, 64, 128, 512, 70_000)
+
+
+@pytest.mark.parametrize("r,n,launch_rows", GEOMETRY_CASES)
+def test_mxu2_geometry_orders_sums_by_the_world_shape_alone(r, n, launch_rows):
+    """The ranks and their columns, which order every row's sums, come
+    from (launch_rows, N) alone; B only places the work."""
+    p = tpw.mxu2_launch_shape(r if launch_rows is None else launch_rows, n)[0]
+    one = tpw.mxu2_geometry(1, r, n, launch_rows)
+    tiles = -(-n // tpw.MXU_TILE)
+    ranges = tpw.mxu2_tile_ranges(n, p)
+    assert [t for a, b in ranges for t in range(a, b)] == list(range(tiles))
+    assert all(b > a for a, b in ranges)
+    assert one.ranks == p
+    assert [c for a, b in one.columns for c in range(a, b)] == list(range(n))
+    assert one.columns == tuple((a * tpw.MXU_TILE, min(b * tpw.MXU_TILE, n))
+                                for a, b in ranges)
+    for B in GEOMETRY_BRANCHES:
+        geo = tpw.mxu2_geometry(B, r, n, launch_rows)
+        assert (geo.ranks, geo.columns) == (one.ranks, one.columns)
+        assert geo.warp_tiles in (1, 2, 4)
+        assert geo.block_rows == tpw.MXU_WARP_ROWS * geo.warp_tiles * 8 // p
+        assert (geo.blocks - 1) * geo.block_rows < r <= geo.blocks * geo.block_rows
+        if geo.warp_tiles > 1:  # a larger M only where the launch still fills the card
+            assert B * geo.blocks >= 4 * 132
+
+
+def test_mxu2_geometry_at_the_spec_cells_shapes():
+    # One world: 64 blocks of 8 rank warps, 16 rows each; 512 branches:
+    # 64 rows a warp, 16 blocks a branch, with the same 8 ranks.
+    assert tpw.mxu2_geometry(1, 1024, 1024) == (8, tuple((128 * q, 128 * q + 128)
+                                                         for q in range(8)), 1, 16, 64)
+    assert tpw.mxu2_geometry(512, 1024, 1024)[2:] == (4, 64, 16)
+    assert tpw.mxu2_geometry(128, 1024, 1024)[2:] == (4, 64, 16)
+    assert tpw.mxu2_geometry(3, 65, 1000)[:1] + tpw.mxu2_geometry(3, 65, 1000)[2:] == (
+        8, 1, 16, 5)

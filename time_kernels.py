@@ -42,10 +42,13 @@ a call, its milliseconds a call and the SHA-256 of the saved rows. And
 the four force kernels over a leading branch axis (boids under
 speculation, one launch for every branch), where the tree takes one, at
 ``chip_smoke.py`` phase 11's shapes: the f32 kernel at B = 16 and the
-general tensor-core kernel at B = 128 (R = N = 1,024), the triangle at B =
-8 (N = 4,096) and the cell kernel at B = 2 (the boids-32,768 grid), on
+general tensor-core kernel at B = 128 and B = 512 (R = N = 1,024; 512 is
+the speculative rollout cell's batch), the triangle at B = 8 (N = 4,096)
+and the cell kernel at B = 2 (the boids-32,768 grid), on
 ``chip_smoke.branch_flocks`` data, with the same four numbers as the
-unbatched kernels.
+unbatched kernels. Each general tensor-core row also gives its bound
+(``bound_ms``: B x R x N pairs at ``chip_smoke.MXU_MASK_OPS_PER_PAIR`` f32
+operations each, at 67 TFLOP/s).
 
 Only public signatures are used, so any tree of the port since they were
 written runs. The last lines are the mean of each tree's turns, whether
@@ -174,12 +177,15 @@ def batched_force_calls(cs, boids, tpw, tcg, tnb) -> dict:
     for name, fn, plain, B in (
         ("f32", tpw.pairwise_force_rows, tpw.pairwise_force_rows_plain, 16),
         ("mxu2", tpw.pairwise_force_rows_mxu2, tpw.pairwise_force_rows_mxu2_plain, 128),
+        ("mxu2", tpw.pairwise_force_rows_mxu2, tpw.pairwise_force_rows_mxu2_plain, 512),
     ):
         pos, vel, act = cs.branch_flocks(B, base, seed=B)
         args = (pos, vel, pos, vel, act, act)
         out[f"{name}_B={B}_R=N=1024"] = timed(
             cs, lambda fn=fn, args=args: fn(*args, **params), fn(*args, **params),
             plain(*args, **params))
+        if name == "mxu2":
+            out[f"{name}_B={B}_R=N=1024"]["bound_ms"] = mxu2_bound_ms(cs, B, 1024, 1024)
     base = boids.make_world(4096, 2, device="cuda").commit().components["position"]
     tri = cs.branch_flocks(8, base, seed=8)
     out["tri_B=8_N=4096"] = timed(
@@ -199,6 +205,12 @@ def batched_force_calls(cs, boids, tpw, tcg, tnb) -> dict:
         "live_pairs": cs.live_pairs(rowvals, colvals),
     }
     return out
+
+
+def mxu2_bound_ms(cs, B: int, R: int, N: int) -> float:
+    """The general tensor-core kernel's least time: its masks' f32
+    operations for B x R x N pairs at the card's f32 peak."""
+    return B * R * N * cs.MXU_MASK_OPS_PER_PAIR / cs.PEAK_F32_PER_S * 1e3
 
 
 def measure(tree: pathlib.Path) -> dict:
@@ -233,6 +245,7 @@ def measure(tree: pathlib.Path) -> dict:
         cs, lambda: tpw.pairwise_force_rows_mxu2(*args, **params),
         tpw.pairwise_force_rows_mxu2(*args, **params),
         tpw.pairwise_force_rows_mxu2_plain(*args, **params))
+    out["mxu2_R=N=1024"]["bound_ms"] = mxu2_bound_ms(cs, 1, 1024, 1024)
 
     state = boids.make_world(4096, 2, device="cuda").commit()
     tri = (state.components["position"], state.components["velocity"],
