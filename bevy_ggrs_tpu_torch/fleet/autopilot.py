@@ -559,10 +559,6 @@ def _action_to_json(a: AutopilotAction) -> dict:
     return {k: v for k, v in dataclasses.asdict(a).items() if v is not None}
 
 
-def _action_from_json(raw: dict) -> AutopilotAction:
-    return AutopilotAction(**raw)
-
-
 def _load_ledger(records) -> List[dict]:
     if isinstance(records, str):
         with open(records) as f:

@@ -21,9 +21,10 @@ modes share the kernel and the C entry (:func:`world_checksum`):
   axis;
 - ``save``: also copies every part's bytes into ring row
   ``frame % depth`` and writes ``ring.frames`` and ``ring.checksums`` there;
-  a ``[B]`` world (the speculative rollout's branches) saves into a
-  ``[B, depth]`` stack of rings, world ``b`` into ring ``b``, in the same
-  one launch;
+  a ``[B]`` world saves into a ``[B, depth]`` stack of rings, world ``b``
+  into ring ``b``, in the same one launch, each at the host's frame or,
+  with ``frames`` (the speculative rollout's and the serving tier's
+  slots), at a frame of its own;
 - ``guard``: hashes a ring row in place and compares it with the digest
   and frame stored at save time, giving one ``int32`` (1 clean or not
   resident, 0 corrupt).
@@ -145,19 +146,20 @@ def save_plain(ring: SnapshotRing, state: WorldState, frame: int,
 def save_slots_plain(ring: SnapshotRing, state: WorldState, frames: torch.Tensor,
                      keep: Optional[torch.Tensor] = None,
                      out: Optional[torch.Tensor] = None,
-                     digest: Optional[Callable[[WorldState], torch.Tensor]] = None
-                     ) -> torch.Tensor:
+                     digest: Optional[Callable[[WorldState], torch.Tensor]] = None,
+                     resources: bool = True) -> torch.Tensor:
     """Plain version of the ``save`` mode over ``[S]`` slots with a frame
     each: what :func:`save_plain` of world ``s`` into ring ``s`` as
     ``frames[s]`` does, for every slot with ``keep[s]`` set (all when
     ``keep`` is None), in batched writes; a slot whose keep is off writes
     nothing and gets lanes 0. Returns ``int64[S, 2]``, also written to
-    ``out`` when given. ``digest`` as in :func:`save_plain`."""
+    ``out`` when given. ``digest`` and ``resources`` as in
+    :func:`save_plain`."""
     S = int(frames.shape[0])
     if tuple(state.alive.shape[:-1]) != (S,) or tuple(ring.frames.shape[:-1]) != (S,):
         raise ValueError("a slot save takes an [S] world, [S, depth] rings and int32[S] frames")
     # Row s: the checksum of world s alone.
-    lanes = checksum_plain(state) if digest is None else digest(state)
+    lanes = checksum_plain(state, resources) if digest is None else digest(state)
     slots = torch.arange(S, device=state.device)
     if keep is not None:
         slots = slots[keep]
@@ -530,7 +532,7 @@ def world_checksum(state: Optional[WorldState], mode: str = "checksum", *,
             raise ValueError(f"keep must be bool{list(S)} on {device}")
     if device.type == "cpu":
         if frames is not None:
-            return save_slots_plain(ring, state, frames, keep, out)
+            return save_slots_plain(ring, state, frames, keep, out, resources=resources)
         if mode == "checksum":
             return checksum_plain(state, resources)
         if mode == "save":

@@ -56,7 +56,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from bevy_ggrs_tpu_torch.ops.checksum import save_plain, world_checksum
+from bevy_ggrs_tpu_torch.ops.checksum import save_plain, save_slots_plain, world_checksum
 from bevy_ggrs_tpu_torch.state import SnapshotRing, WorldState, checksum_impl, tree_map
 
 _M32 = 0xFFFFFFFF
@@ -418,20 +418,33 @@ class EntityShard:
             return fn(self.whole(state))
         return self.sum_lanes(world_checksum(state, resources=self.hashes_resources))
 
-    def save(self, ring: SnapshotRing, state: WorldState, frame: int,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def save(self, ring: SnapshotRing, state: WorldState, frame: int = 0,
+             out: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``ring_save`` of this rank's rows: one save launch, then the
         row's digest (and ``out``) rewritten with the whole world's lanes,
-        which it returns. With a checksum function installed, the rows are
-        copied and the digest is the function's of the whole world."""
+        which it returns. With ``frames`` (``int32[S]`` on the world's
+        device, as :func:`~bevy_ggrs_tpu_torch.ops.checksum.world_checksum`
+        takes them) slot ``s`` of a ``[S]`` world saves into row
+        ``frames[s] mod depth`` of ring ``s`` instead of row ``frame %
+        depth``. With a checksum function installed, the rows are copied
+        and the digest is the function's of the whole world."""
         fn = checksum_impl()
         if fn is None:
             lanes = self.sum_lanes(world_checksum(state, "save", ring=ring, frame=frame,
+                                                  frames=frames,
                                                   resources=self.hashes_resources))
         else:
             lanes = fn(self.whole(state))
-            save_plain(ring, state, frame, digest=lambda _: lanes)
-        at = (slice(None),) * (ring.frames.dim() - 1) + (int(frame) % ring.depth,)
+            if frames is None:
+                save_plain(ring, state, frame, digest=lambda _: lanes)
+            else:
+                save_slots_plain(ring, state, frames, digest=lambda _: lanes)
+        if frames is None:
+            at = (slice(None),) * (ring.frames.dim() - 1) + (int(frame) % ring.depth,)
+        else:
+            at = (torch.arange(len(frames), device=frames.device),
+                  torch.remainder(frames.to(torch.int64), ring.depth))
         ring.checksums[at] = lanes
         if out is not None:
             out.copy_(lanes)

@@ -10,9 +10,11 @@ misprediction becomes a copy, not a resimulation.
 1. :func:`enumerate_branches`: the candidate input tensor ``bits[B, F, P,
    ...]``. Branch 0 is the reference's own policy (repeat the last input).
 2. :class:`SpeculativeExecutor`: every branch rolls forward F frames from
-   the same start state, each frame's save of all B branches one launch of
-   the checksum kernel (``rollout.rollout_burst`` over the ``[B]`` world),
-   giving per-branch rings and per-branch checksum streams.
+   the same start state (:func:`rollout_branches`, the batched burst loop
+   of ``rollout.py`` over the ``[B]`` world), each frame's save of all B
+   branches one launch of the checksum kernel at a frame a branch taken
+   from the device, giving per-branch rings and per-branch checksum
+   streams.
 3. :func:`match_branch`: host-side longest-prefix match of the confirmed
    inputs against the branch tensor.
 4. :meth:`SpeculativeExecutor.commit`: a copy of the matched branch's
@@ -35,7 +37,8 @@ once as a CUDA graph (:class:`RolloutGraph`) per :func:`rollout_key` and
 replays it on every later call with that key: the same kernels, launched
 by one ``cudaGraphLaunch`` instead of one Python dispatch each, with the
 inputs copied into static buffers without a synchronize. Every other
-rollout runs eagerly through :func:`rollout_branches`.
+rollout runs :func:`rollout_branches` eagerly. The graph captures that
+same function, so a rollout has one body, captured or run eagerly.
 """
 
 from __future__ import annotations
@@ -49,9 +52,8 @@ import torch
 from bevy_ggrs_tpu_torch import ops
 from bevy_ggrs_tpu_torch.native import spec as native_spec
 from bevy_ggrs_tpu_torch.obs.trace import null_tracer
-from bevy_ggrs_tpu_torch.ops.checksum import world_checksum
-from bevy_ggrs_tpu_torch.rollout import rollout_burst
-from bevy_ggrs_tpu_torch.schedule import PREDICTED, PlayerInputs, Schedule
+from bevy_ggrs_tpu_torch.rollout import _slot_steps
+from bevy_ggrs_tpu_torch.schedule import PREDICTED, Schedule
 from bevy_ggrs_tpu_torch.state import (
     SnapshotRing,
     WorldState,
@@ -171,27 +173,43 @@ class SpecResult:
     first_branch: int = 0
 
 
+def _check_start(start_frame: int, num_frames: int) -> None:
+    """Refuse a host start frame whose ``num_frames`` frames leave int32."""
+    if not -(1 << 31) <= int(start_frame) <= (1 << 31) - num_frames:
+        raise ValueError(f"frames from {start_frame} do not fit the ring's int32 frames")
+
+
 def rollout_branches(schedule: Schedule, state: WorldState, start_frame: int,
                      branch_bits, status, depth: int, shard=None,
                      tracer=null_tracer) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
     """Every branch of ``branch_bits[B, F, ...]`` from the single world
     ``state``: fresh ``[B, depth]`` rings, then (save, advance) × F, the
     semantics of F serial SaveGameState/AdvanceFrame pairs per branch.
-    Returns ``(rings, states[B], checksums[B, F, 2])``. ``branch_bits``
-    and ``status`` are tensors on ``state``'s device or host arrays,
-    uploaded here. ``shard`` (an ``EntityShard``): ``state`` is its row
+    Returns ``(rings, states[B], checksums[B, F, 2])``. ``start_frame`` is
+    a host int, range-checked here, or an ``int32[1]`` tensor on
+    ``state``'s device (a :class:`RolloutGraph`'s). ``branch_bits`` and
+    ``status`` are tensors on ``state``'s device or host arrays, uploaded
+    here. The steps run ``rollout.py``'s batched loop with every mask on:
+    each frame's save of all B branches takes the branches' frames from a
+    device tensor. ``shard`` (an ``EntityShard``): ``state`` is its row
     block, and the saved lanes are the whole world's. ``tracer`` gets a
-    ``burst_setup`` span (the uploads, the rings and the broadcast) and
-    the burst's."""
+    ``burst_setup`` span (the uploads, the rings, the broadcast and the
+    frames) and the burst's."""
     B, F = int(branch_bits.shape[0]), int(branch_bits.shape[1])
+    if not torch.is_tensor(start_frame):
+        _check_start(start_frame, F)
+    device = state.device
     with tracer.span("burst_setup"):
-        branch_bits = torch.as_tensor(branch_bits, device=state.device)
-        status = torch.as_tensor(status, device=state.device)
+        branch_bits = torch.as_tensor(branch_bits, device=device)
+        status = torch.as_tensor(status, device=device)
         rings = branch_rings(state, B, depth)
         states = broadcast_branches(state, B)
-    mask = np.ones(F, dtype=bool)
-    return rollout_burst(schedule, rings, states, start_frame, branch_bits, status,
-                         mask, mask, shard, tracer)
+        frames = torch.arange(F, dtype=torch.int32, device=device) + start_frame
+        frames = frames[:, None].expand(F, B).contiguous()
+    ones = np.ones((B, F), dtype=bool)
+    return _slot_steps(schedule, rings, states, frames, branch_bits,
+                       status[None].expand((B,) + tuple(status.shape)), ones, ones,
+                       shard=shard, tracer=tracer)
 
 
 def graph_path(device: torch.device, layout) -> bool:
@@ -247,12 +265,15 @@ class RolloutGraph:
 
     The graph reads static device buffers: the start world, and one byte
     buffer holding the start frame, the status and the branch tree. It
-    holds :func:`~bevy_ggrs_tpu_torch.state.branch_rings`,
+    holds :func:`rollout_branches` itself, run on those buffers:
+    :func:`~bevy_ggrs_tpu_torch.state.branch_rings`,
     :func:`~bevy_ggrs_tpu_torch.state.broadcast_branches` of the start
-    world, then F × (one save of all B branches, one ``[B]`` schedule
-    step), the semantics of :func:`rollout_branches`. Each save takes its
-    frame from a device tensor (the checksum kernel's per-slot frames), so
-    one capture serves every start frame.
+    world, the frames from the start frame's buffer, then F × (one save of
+    all B branches, one ``[B]`` schedule step). Each save takes its frames
+    from a device tensor (the checksum kernel's per-slot frames), so one
+    capture serves every start frame. The graph keeps the systems the
+    schedule held at capture: one added later runs only in eager
+    rollouts.
 
     :meth:`capture` runs the rollout once eagerly from its inputs (which
     loads every kernel and fills the step's caches before the capture,
@@ -268,7 +289,6 @@ class RolloutGraph:
     def __init__(self, schedule: Schedule, state: WorldState, bits: np.ndarray,
                  status: np.ndarray, depth: int):
         device = state.device
-        B, F = int(bits.shape[0]), int(bits.shape[1])
         self.start = tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device=device),
                               state)
         # One byte buffer: the start frame, the status, the tree; each part
@@ -292,18 +312,11 @@ class RolloutGraph:
             self._stages.append((host, views, torch.cuda.Event() if pin else None))
         self._turn = 0
 
+        captured = Schedule(schedule.systems)  # a replay runs these systems
+
         def body():  # reads only the static buffers
-            rings = branch_rings(self.start, B, depth)
-            states = broadcast_branches(self.start, B)
-            frames = self.frame0 + torch.arange(F, dtype=torch.int32, device=device)
-            frames = frames[:, None].expand(F, B).contiguous()
-            checksums = torch.zeros((B, F, 2), dtype=torch.int64, device=device)
-            for t in range(F):
-                world_checksum(states, "save", ring=rings, frames=frames[t],
-                               out=checksums[:, t])
-                st = self.status[t].expand((B,) + tuple(self.status.shape[1:]))
-                states = schedule(states, PlayerInputs(bits=self.bits[:, t], status=st))
-            return rings, states, checksums
+            return rollout_branches(captured, self.start, self.frame0, self.bits,
+                                    self.status, depth)
 
         self._body = body
         self.graph = self._out = None
@@ -324,8 +337,7 @@ class RolloutGraph:
 
     def _load(self, state: WorldState, start_frame: int, bits: np.ndarray,
               status: np.ndarray) -> None:
-        if not -(1 << 31) <= start_frame <= (1 << 31) - bits.shape[1]:
-            raise ValueError(f"frames from {start_frame} do not fit the ring's int32 frames")
+        _check_start(start_frame, bits.shape[1])
         host, (frame0, st, tree), done = self._stages[self._turn]
         self._turn = (self._turn + 1) % len(self._stages)
         if done is not None:
@@ -372,7 +384,12 @@ class SpeculativeExecutor:
     ``spec_graph_replay``). Elsewhere it runs :func:`rollout_branches`
     (``eager_runs``), and ``tracer`` gets a ``spec_branch_dispatch`` span
     a call, holding the burst's ``burst_setup``, ``burst_save`` and
-    ``burst_step`` spans."""
+    ``burst_step`` spans. Both run one body, :func:`rollout_branches`,
+    captured or eagerly. A replay keeps the schedule's systems as they
+    were at its key's capture (the key holds the schedule by identity):
+    a system added to the schedule afterwards (``Schedule.add_system``)
+    runs in eager rollouts at once but in no replay, as the JAX package's
+    executor, jitted once, keeps its first trace."""
 
     def __init__(self, schedule: Schedule, num_branches: int, max_frames: int,
                  mesh=None, branch_axis: str = "branch", entity_axis: Optional[str] = None,

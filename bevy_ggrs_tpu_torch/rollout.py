@@ -12,27 +12,25 @@ one compiled executable. PyTorch runs eagerly, so the masks stay on the
 host and steps with neither flag set are skipped; ``checksums`` still
 comes back shaped ``[max_frames, 2]`` with zeros where nothing was saved.
 
-The speculative rollout runs the same burst over a ``[B]`` world, where
-JAX vmaps it over the branch axis: bits ``[B, F, players, ...]``, the
-status ``[F, players]`` shared by every branch, rings a ``[B, depth]``
-stack and the lanes ``[B, F, 2]``. Each frame's save of all B branches is
-one launch of the checksum kernel, writing its lanes straight into
-``checksums[:, t]``.
-
 The serving tier runs the burst over a ``[S]`` world of match slots
 (:func:`rollout_burst_slots`), where JAX vmaps the masked scan over the
 slot axis: each slot starts at its own frame and has masks of its own, so
 each step's save of all S slots is one launch of the checksum kernel
 with a frame and a keep flag a slot, and each step advances the ``[S]``
 world once, a slot whose advance is off keeping its state (JAX's
-``jnp.where``). :func:`ring_load_slots` loads each slot's own row of a
-``[S, depth]`` stack of rings.
+``jnp.where``). The speculative rollout
+(``parallel/speculate.py::rollout_branches``), run eagerly or captured as
+a CUDA graph, is the same burst over a ``[B]`` world of branches with
+every mask on: both run the one loop :func:`_slot_steps`, writing each
+step's lanes straight into ``checksums[:, t]``.
+:func:`ring_load_slots` loads each slot's own row of a ``[S, depth]``
+stack of rings.
 
 A tracer (``obs/trace.py``; default the shared no-op one) passed to
-:meth:`RolloutExecutor.run` or :func:`rollout_burst` records where the
-burst's host time goes: ``burst_setup`` (the load and the uploads of the
-inputs), one ``burst_save`` a save and one ``burst_step`` a step of the
-schedule.
+:meth:`RolloutExecutor.run`, :func:`rollout_burst` or the batched loop
+records where the burst's host time goes: ``burst_setup`` (the load and
+the uploads of the inputs), one ``burst_save`` a save and one
+``burst_step`` a step of the schedule.
 """
 
 from __future__ import annotations
@@ -82,39 +80,78 @@ def rollout_burst(
     ring: SnapshotRing,
     state: WorldState,
     start_frame: int,
-    bits: torch.Tensor,  # [T, num_players, *input_shape] ([B, T, ...] for branches)
-    status: torch.Tensor,  # int32[T, num_players], shared by every branch
+    bits: torch.Tensor,  # [T, num_players, *input_shape]
+    status: torch.Tensor,  # int32[T, num_players]
     save_mask: np.ndarray,  # bool[T], host
     adv_mask: np.ndarray,  # bool[T], host
     shard=None,  # an EntityShard: ring and state are its row blocks
     tracer=null_tracer,
 ) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
-    """Run the ``T`` steps; returns ``(ring, state, checksums[T, 2])`` with
-    ``checksums[t]`` the checksum saved at step ``t`` (0 where
-    ``save_mask[t]`` is False). The ring is updated in place. A ``[B]``
-    world runs every branch at once on its own ``bits[b]``, into a ``[B,
-    depth]`` stack of rings, with ``checksums[B, T, 2]``. With ``shard``
-    the saves store the whole world's lanes (:meth:`~bevy_ggrs_tpu_torch.
-    parallel.sharding.EntityShard.save`). ``tracer`` gets a ``burst_save``
-    span a save and a ``burst_step`` span a step."""
-    lead = tuple(state.alive.shape[:-1])
-    at = (slice(None),) * len(lead)  # the branch axes come before the time axis
-    checksums = torch.zeros(lead + (len(save_mask), 2), dtype=torch.int64,
-                            device=state.device)
+    """Run the ``T`` steps of one world; returns ``(ring, state,
+    checksums[T, 2])`` with ``checksums[t]`` the checksum saved at step
+    ``t`` (0 where ``save_mask[t]`` is False). The ring is updated in
+    place. With ``shard`` the saves store the whole world's lanes
+    (:meth:`~bevy_ggrs_tpu_torch.parallel.sharding.EntityShard.save`).
+    ``tracer`` gets a ``burst_save`` span a save and a ``burst_step`` span
+    a step."""
+    checksums = torch.zeros((len(save_mask), 2), dtype=torch.int64, device=state.device)
     frame = int(start_frame)
     for t, (save, adv) in enumerate(zip(save_mask, adv_mask)):
         if save:
             with tracer.span("burst_save"):
                 if shard is None:
-                    ring, _ = ring_save(ring, state, frame, out=checksums[at + (t,)])
+                    ring, _ = ring_save(ring, state, frame, out=checksums[t])
                 else:
-                    shard.save(ring, state, frame, out=checksums[at + (t,)])
+                    shard.save(ring, state, frame, out=checksums[t])
         if adv:
             with tracer.span("burst_step"):
-                st = status[t].expand(lead + tuple(status.shape[1:]))
-                state = schedule(state, PlayerInputs(bits=bits[at + (t,)], status=st))
+                state = schedule(state, PlayerInputs(bits=bits[t], status=status[t]))
             frame += 1
     return ring, state, checksums
+
+
+def _slot_steps(schedule: Schedule, rings: SnapshotRing, states: WorldState,
+                frames: torch.Tensor, bits: torch.Tensor, status: torch.Tensor,
+                save_mask: np.ndarray, adv_mask: np.ndarray,
+                keep: Optional[torch.Tensor] = None, advance: Optional[torch.Tensor] = None,
+                shard=None, tracer=null_tracer) -> Tuple[SnapshotRing, WorldState, torch.Tensor]:
+    """The loop of every batched burst: ``T`` steps of a ``[S]`` world
+    (match slots, or the branches of a speculative rollout) into a ``[S,
+    depth]`` stack of rings. Step ``t`` saves every slot whose
+    ``save_mask[s, t]`` is set (host ``bool[S, T]``) at ``frames[t]``
+    (``int32[T, S]`` on the world's device), one launch, and then steps
+    the ``[S]`` world once if any slot's ``adv_mask[s, t]`` is set; the
+    host masks only skip a step or take its all-on form. Where some slots
+    are off, ``keep[t]`` and ``advance[t]`` (``bool[T, S]`` on the
+    device) mask them: a slot not saved writes nothing and gets lanes 0, a
+    slot not advanced keeps its state. ``bits[:, t]`` and ``status[:, t]``
+    are step ``t``'s inputs. With a checksum function installed the save
+    copies the rows and takes that function's digests; with ``shard``
+    (every save on) the saves store the whole world's lanes. Returns
+    ``(rings, states, checksums[S, T, 2])``; the rings are updated in
+    place. ``tracer`` gets a ``burst_save`` span a save and a
+    ``burst_step`` span a step."""
+    from bevy_ggrs_tpu_torch.ops import checksum as ck
+
+    S, T = save_mask.shape
+    checksums = torch.zeros((S, T, 2), dtype=torch.int64, device=states.device)
+    digest = checksum_impl()
+    for t in range(T):
+        if save_mask[:, t].any():
+            with tracer.span("burst_save"):
+                kept = None if save_mask[:, t].all() else keep[t]
+                if shard is not None:
+                    shard.save(rings, states, frames=frames[t], out=checksums[:, t])
+                elif digest is None:
+                    ck.world_checksum(states, "save", ring=rings, frames=frames[t], keep=kept,
+                                      out=checksums[:, t])
+                else:
+                    ck.save_slots_plain(rings, states, frames[t], kept, checksums[:, t], digest)
+        if adv_mask[:, t].any():
+            with tracer.span("burst_step"):
+                new = schedule(states, PlayerInputs(bits=bits[:, t], status=status[:, t]))
+                states = new if adv_mask[:, t].all() else select_slots(advance[t], new, states)
+    return rings, states, checksums
 
 
 def rollout_burst_slots(
@@ -137,32 +174,17 @@ def rollout_burst_slots(
     updated in place. With a checksum function installed
     (``state.set_checksum_impl``), each step's save copies the slots'
     rows and takes that function's digests."""
-    from bevy_ggrs_tpu_torch.ops.checksum import save_slots_plain, world_checksum
-
     save_mask = np.asarray(save_mask, bool)
     adv_mask = np.asarray(adv_mask, bool)
-    S, T = save_mask.shape
     device = states.device
     adv = adv_mask.astype(np.int64)
     # The frame each slot is at when step t runs (before it advances).
     at = np.asarray(start_frames, np.int64)[:, None] + np.cumsum(adv, axis=1) - adv
-    frames_d = torch.as_tensor(np.ascontiguousarray(at.T).astype(np.int32), device=device)
-    keep_d = torch.as_tensor(np.ascontiguousarray(save_mask.T), device=device)
-    adv_d = torch.as_tensor(np.ascontiguousarray(adv_mask.T), device=device)
-    checksums = torch.zeros((S, T, 2), dtype=torch.int64, device=device)
-    digest = checksum_impl()
-    for t in range(T):
-        if save_mask[:, t].any():
-            keep = None if save_mask[:, t].all() else keep_d[t]
-            if digest is None:
-                world_checksum(states, "save", ring=rings, frames=frames_d[t], keep=keep,
-                               out=checksums[:, t])
-            else:
-                save_slots_plain(rings, states, frames_d[t], keep, checksums[:, t], digest)
-        if adv_mask[:, t].any():
-            new = schedule(states, PlayerInputs(bits=bits[:, t], status=status[:, t]))
-            states = new if adv_mask[:, t].all() else select_slots(adv_d[t], new, states)
-    return rings, states, checksums
+    frames = torch.as_tensor(np.ascontiguousarray(at.T).astype(np.int32), device=device)
+    keep = torch.as_tensor(np.ascontiguousarray(save_mask.T), device=device)
+    advance = torch.as_tensor(np.ascontiguousarray(adv_mask.T), device=device)
+    return _slot_steps(schedule, rings, states, frames, bits, status, save_mask, adv_mask,
+                       keep, advance)
 
 
 class RolloutExecutor:

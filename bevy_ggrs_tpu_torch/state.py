@@ -14,7 +14,8 @@ of the world is a structure of arrays kept on one device:
 copies one row out, and the checksum is the same two-lane murmur3 wrapping
 sum as the JAX package's, bit for bit. The speculative rollout's worlds
 carry a leading ``[B]`` branch axis, and its rings are a ``[B, depth]``
-stack (:func:`branch_rings`), saved all at once by :func:`ring_save`.
+stack (:func:`branch_rings`), saved all at once, one launch a frame
+(``rollout.py``'s batched loop; :func:`ring_save` takes such a stack too).
 
 Rings are written in place, where the JAX package's are values: a caller
 that needs an older ring beside a newer one clones it

@@ -243,6 +243,67 @@ def test_checksum_resource_flag_splits_the_lanes():
     assert torch.equal(lanes & 0xFFFFFFFF, full)
 
 
+def slot_worlds(S=3, n=24):
+    """A ``[S]`` boids world whose slots differ in positions and in their
+    frame counts (a resource), and ``[S, 4]`` rings of zeros for it."""
+    one = tboids.make_world(n, 2, device="cpu").commit()
+    worlds = [one.replace(
+        components={**one.components, "position": one.components["position"] + s},
+        resources={"frame_count": torch.tensor(3 + 7 * s, dtype=torch.uint32)})
+        for s in range(S)]
+    stacked = ts.tree_map(lambda *xs: torch.stack(xs), *worlds)
+    rings = ts.branch_rings(one, S, 4)
+    ts.tree_map(lambda x: x.view(torch.uint8).zero_(), rings.states)  # rows are not filled
+    return worlds, stacked, rings
+
+
+def ring_bytes(ring):
+    st = ring.states
+    leaves = ts.tree_leaves([st.alive, st.rollback_id, st.components, st.present,
+                             st.resources])
+    return [x.view(torch.uint8) for x in leaves] + [ring.frames, ring.checksums]
+
+
+SLOT_FRAMES = torch.tensor([5, -3, 2], dtype=torch.int32)
+
+
+def test_a_slot_save_without_resources_leaves_them_out_on_the_cpu():
+    """The save at a frame a slot with ``resources=False`` gives each slot
+    the lanes and the rows a single save without resources gives it."""
+    worlds, stacked, rings = slot_worlds()
+    singles = [ts.select_branch(rings, s) for s in range(len(worlds))]
+    lanes = tck.world_checksum(stacked, "save", ring=rings, frames=SLOT_FRAMES,
+                               resources=False)
+    for s, (world, ring) in enumerate(zip(worlds, singles)):
+        want = tck.save_plain(ring, world, int(SLOT_FRAMES[s]), resources=False)
+        assert torch.equal(lanes[s], want)
+        assert all(torch.equal(a, b) for a, b in zip(ring_bytes(ts.select_branch(rings, s)),
+                                                     ring_bytes(ring)))
+    assert not torch.equal(lanes, tck.checksum_plain(stacked))
+
+
+@pytest.mark.parametrize("hook", [None, tck.checksum_plain], ids=["kernel", "checksum hook"])
+def test_an_entity_shards_slot_save_equals_its_single_saves(hook):
+    """``EntityShard.save`` at a frame a slot (``frames=``) on a one-rank
+    CPU mesh: bitwise the shard's host-frame save of each slot alone, in
+    the rows, the frames and the digests."""
+    worlds, stacked, rings = slot_worlds()
+    shard = sharding.EntityShard(world_mesh(), "entity", worlds[0].capacity)
+    singles = [ts.select_branch(rings, s) for s in range(len(worlds))]
+    out = torch.zeros((len(worlds), 2), dtype=torch.int64)
+    ts.set_checksum_impl(hook)
+    try:
+        lanes = shard.save(rings, stacked, frames=SLOT_FRAMES, out=out)
+        want = [shard.save(ring, world, int(SLOT_FRAMES[s]))
+                for s, (world, ring) in enumerate(zip(worlds, singles))]
+    finally:
+        ts.set_checksum_impl(None)
+    assert torch.equal(lanes, torch.stack(want)) and torch.equal(out, lanes)
+    for s, ring in enumerate(singles):
+        assert all(torch.equal(a, b) for a, b in zip(ring_bytes(ts.select_branch(rings, s)),
+                                                     ring_bytes(ring)))
+
+
 def test_xla_forces_take_row_blocks_bitwise():
     """The row-chunked xla forces: a row block is bitwise the same rows of
     the whole call, whatever its alignment to the chunks."""

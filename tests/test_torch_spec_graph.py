@@ -189,6 +189,30 @@ def test_replays_give_the_eager_rollouts_bits(stub_graphs):
     assert (ex.graph_captures, ex.graph_replays) == (1, len(calls) - 1)
 
 
+def test_a_replay_keeps_the_systems_it_captured(stub_graphs, monkeypatch):
+    """The key holds the schedule by identity: a system added after the
+    key's first call runs in no replay (the graph keeps what it captured,
+    as JAX's executor, jitted once, keeps its trace), while an eager run on
+    the CPU runs it at once."""
+    sched = tbox.make_schedule()
+    ex = tspec.SpeculativeExecutor(sched, B, F)
+    ex.run(world(), 0, tree(0))
+    calls = []
+
+    def added(state, inputs):
+        calls.append(inputs.bits.shape)
+        return state
+
+    sched.add_system(added)
+    res = ex.run(world(), 9, tree(1))
+    assert calls == [] and (ex.graph_captures, ex.graph_replays) == (1, 1)
+    assert same(res, tspec.rollout_branches(tbox.make_schedule(), world(), 9, tree(1),
+                                            STATUS, F))
+    monkeypatch.undo()  # the CPU's own path: eager
+    ex.run(world(), 9, tree(1))
+    assert calls == [(B, P)] * F and ex.eager_runs == 1
+
+
 def test_a_result_owns_its_tensors(stub_graphs):
     ex = tspec.SpeculativeExecutor(tbox.make_schedule(), B, F)
     ex.run(world(), 0, tree(0))
